@@ -1,0 +1,34 @@
+"""jepsen_tpu_torch — the linearizability checker on PyTorch and CUDA.
+
+A port of :mod:`jepsen_tpu`'s dense linearizability path to an NVIDIA
+Hopper GPU: history packing, the dense config-space bitmap engine with
+its hand-written CUDA kernel (``csrc/dense_chunk.cu``), the CPU oracle,
+counterexample replay and the ``linearizable`` checker. It imports torch
+and numpy only.
+
+Entry points take ``device=``. Without one they run on the card, and
+raise if there is none; pass ``device="cpu"`` to run the plain torch
+versions of the kernels on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` when none is given.
+    Raises when no card is present rather than running on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain torch versions on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

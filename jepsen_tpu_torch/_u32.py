@@ -1,0 +1,64 @@
+"""Unsigned 32-bit words in torch tensors.
+
+Bitmap words and transition masks are u32 in meaning. Torch's CPU build
+has no shifts on ``torch.uint32``, so the port keeps two carriers and
+converts only here, so that bit 31 never changes meaning:
+
+- **raw**: ``int32`` tensors holding the 32 bits as they are (bit 31 set
+  reads as negative). This is the format the CUDA kernels take, as
+  ``uint32_t*``, and the format the dense engine carries between chunks.
+- **wide**: ``int64`` tensors holding 0 ... 2**32 - 1. The plain torch
+  versions compute on these.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def widen(raw: torch.Tensor) -> torch.Tensor:
+    """Raw int32 words -> int64 words in [0, 2**32)."""
+    if raw.dtype != torch.int32:
+        raise TypeError(f"raw u32 words are int32, got {raw.dtype}")
+    return raw.to(torch.int64) & MASK32
+
+
+def narrow(wide: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> raw int32 words (same bits)."""
+    if wide.dtype != torch.int64:
+        raise TypeError(f"wide u32 words are int64, got {wide.dtype}")
+    return torch.where(wide >= 2 ** 31, wide - 2 ** 32, wide).to(torch.int32)
+
+
+def raw_word(v: int) -> int:
+    """A Python u32 value as the int32 that carries its bits."""
+    v &= MASK32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def bitmap_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """A numpy u32 bitmap (any integer dtype holding u32 values) as a raw
+    int32 tensor on ``device``."""
+    u = np.ascontiguousarray(np.asarray(a).astype(np.uint32))
+    return torch.from_numpy(u.view(np.int32).copy()).to(device)
+
+
+def bitmap_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A raw int32 (or wide int64) bitmap tensor as a numpy u32 array."""
+    if t.dtype == torch.int64:
+        t = narrow(t)
+    if t.dtype != torch.int32:
+        raise TypeError(f"bitmap words are int32 or int64, got {t.dtype}")
+    return t.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def popcount(raw: torch.Tensor) -> int:
+    """Total set bits of a raw int32 bitmap."""
+    w = widen(raw)
+    total = torch.zeros((), dtype=torch.int64, device=raw.device)
+    for k in range(32):
+        total += ((w >> k) & 1).sum()
+    return int(total)
