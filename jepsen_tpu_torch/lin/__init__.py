@@ -7,6 +7,10 @@
 - :mod:`jepsen_tpu_torch.lin.dense`   — the dense config-space bitmap
   engine (windows <= 20), chunk by chunk through
   :mod:`jepsen_tpu_torch.lin.dense_cuda`'s kernel.
+- :mod:`jepsen_tpu_torch.lin.bfs`     — the sparse frontier engine for
+  wider windows (crash-free register histories on single u32 keys),
+  through :mod:`jepsen_tpu_torch.lin.psort`'s and
+  :mod:`jepsen_tpu_torch.lin.psort_fused`'s kernels.
 - :mod:`jepsen_tpu_torch.lin.witness` — counterexamples for device
   verdicts.
 
@@ -34,7 +38,7 @@ def analysis(model, history, algorithm: str = "competition", device=None,
     reference), or ``"competition"`` (race both; the first definite
     verdict wins). ``device`` is where the device engine runs (default:
     the card; see :func:`jepsen_tpu_torch.resolve_device`)."""
-    known = {"witness", "cancel", "chunk", "explain"}
+    known = {"witness", "cancel", "chunk", "cap_schedule", "explain"}
     if kw.keys() - known:
         raise TypeError(f"unknown analysis options {kw.keys() - known}")
     if algorithm not in ALGORITHMS:
@@ -75,17 +79,19 @@ def analysis(model, history, algorithm: str = "competition", device=None,
 def device_check_packed(packed: PackedHistory, cancel=None, device=None,
                         **kw) -> dict:
     """The device search, routed by history shape: the dense bitmap
-    engine when window and state count fit its bounds, else an honest
-    unknown (the sparse engine is not ported yet)."""
-    from jepsen_tpu_torch.lin import dense
+    engine when window and state count fit its bounds, else the sparse
+    frontier engine, which answers a band it does not take yet with an
+    honest unknown naming it (:func:`jepsen_tpu_torch.lin.bfs.band_error`)."""
+    from jepsen_tpu_torch.lin import bfs, dense
 
-    known = {"chunk", "explain"}
+    known = {"chunk", "cap_schedule", "explain"}
     if kw.keys() - known:
         raise TypeError(f"unknown device-check options {kw.keys() - known}")
-    if dense.plan(packed) is None:
-        return {"valid?": "unknown", "analyzer": "gpu",
-                "error": "sparse engine not yet ported"}
-    return dense.check_packed(packed, cancel=cancel, device=device, **kw)
+    if dense.plan(packed) is not None:
+        dkw = {k: v for k, v in kw.items() if k in ("chunk", "explain")}
+        return dense.check_packed(packed, cancel=cancel, device=device,
+                                  **dkw)
+    return bfs.check_packed(packed, cancel=cancel, device=device, **kw)
 
 
 def _competition(packed: PackedHistory, cancel=None, device=None,

@@ -1,0 +1,79 @@
+"""ctypes binding of ``csrc/psort.cu``: the CUDA kernels behind
+:func:`jepsen_tpu_torch.lin.psort.dedup_keys` and
+:func:`jepsen_tpu_torch.lin.psort.compact_keys`.
+
+The functions here take CUDA tensors that the wrappers in
+:mod:`jepsen_tpu_torch.lin.psort` have checked, allocate the outputs and
+scratch, and launch on the current stream. They do not synchronise.
+Keys are raw int32 tensors read as ``uint32_t``
+(:mod:`jepsen_tpu_torch._u32`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from jepsen_tpu_torch import _build
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("psort")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.psort_dedup_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
+        lib.psort_dedup_launch.restype = i
+        lib.psort_compact_launch.argtypes = [p, i, i, i, p, p, p, p]
+        lib.psort_compact_launch.restype = i
+        _lib = lib
+    return _lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str, n: int, n_pad: int, cap: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"(n={n}, n_pad={n_pad}, cap={cap})")
+
+
+def dedup(key: torch.Tensor, valid: torch.Tensor, cap: int, n_pad: int):
+    """Launch the sort-dedup. Returns (keys int32[cap], flags int32[2] =
+    (count, overflow)) on the keys' device."""
+    lib = _load()
+    n = key.numel()
+    dev = key.device
+    work = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    blocks = torch.empty(n_pad // 1024 + 1, dtype=torch.int32, device=dev)
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup_launch(
+            key.data_ptr(), valid.data_ptr(), n, n_pad, cap,
+            work.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+            flags.data_ptr(), _stream(key))
+    _raise_on(rc, "psort dedup_keys", n, n_pad, cap)
+    return out, flags
+
+
+def compact(keys: torch.Tensor, cap: int, n_pad: int):
+    """Launch the compaction sort. Returns (keys int32[cap], count
+    int32[1]) on the keys' device."""
+    lib = _load()
+    n = keys.numel()
+    dev = keys.device
+    work = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_compact_launch(
+            keys.data_ptr(), n, n_pad, cap, work.data_ptr(),
+            out.data_ptr(), count.data_ptr(), _stream(keys))
+    _raise_on(rc, "psort compact_keys", n, n_pad, cap)
+    return out, count

@@ -1,8 +1,9 @@
 """Counterexample reconstruction for device-decided violations.
 
-The dense engine's frontier bitmap carries no parent pointers. Instead
-the device search keeps its chunk-entry bitmaps, and on an invalid
-verdict this module replays just the failing tail on the host:
+Neither device engine's frontier carries parent pointers. Instead the
+device search keeps its chunk-entry frontiers (dense bitmaps, or the
+sparse engine's decoded keys), and on an invalid verdict this module
+replays just the failing tail on the host:
 
 1. take the last snapshot at or before the dead row — the exact closed
    config set the device search had there;
@@ -11,11 +12,13 @@ verdict this module replays just the failing tail on the host:
 3. emit ``final-paths``: for each config alive at the failure, its model
    state and the op path that reached it.
 
-The replay is bounded by one chunk of return events, whatever the
-history's length.
+The replay is bounded by one chunk of return events (one row of a
+sparse spike), whatever the history's length.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from jepsen_tpu_torch.lin import cpu, dense
 from jepsen_tpu_torch.lin.prepare import PackedHistory
@@ -53,4 +56,24 @@ def tail_replay(p: PackedHistory, nil_id: int, snapshots: list,
         return {}
     base, F = usable[-1]
     configs = set(dense.decode_bitmap(F, nil_id))
+    return replay_configs(p, configs, base, dead_row, cancel=cancel)
+
+
+def tail_replay_sparse(p: PackedHistory, snapshots: list, dead_row: int,
+                       cancel=None) -> dict:
+    """Sparse-engine counterexample: snapshots are ``(base_row,
+    bits[cap, NW], state[cap, S], count)`` chunk-entry frontiers (numpy);
+    decode the multi-word bitsets and replay the tail."""
+    usable = [s for s in snapshots if s[0] <= dead_row]
+    if not usable:
+        return {}
+    base, bits, state, count = usable[-1]
+    n = min(int(count), np.asarray(bits).shape[0])
+    bits = np.asarray(bits)[:n].astype(object)
+    state = np.asarray(state)[:n]
+    packed = bits[:, 0]
+    for w in range(1, bits.shape[1]):
+        packed = packed | (bits[:, w] << (32 * w))
+    configs = set(zip((int(b) for b in packed),
+                      map(tuple, state.tolist())))
     return replay_configs(p, configs, base, dead_row, cancel=cancel)

@@ -43,8 +43,24 @@ F_IDS = {"read": F_READ, "write": F_WRITE, "cas": F_CAS,
 NIL = np.int32(-(2 ** 31))
 
 # Families whose one-word state is a bounded non-negative id (NIL remapped
-# to a dedicated id): the ones the dense engine takes.
+# to a dedicated id): the ones the dense engine and the sparse engine's
+# packed keys take.
 PACKED_STATE_KERNELS = ("cas-register", "register", "mutex")
+
+# Kernels whose F_READ legality is exactly "v == NIL or v == state[0]"
+# (see _cas_register_step / _register_step). The sparse engine bakes
+# this predicate into per-state saturation tables; a kernel listed here
+# with other read semantics would make that path unsound.
+READ_VALUE_MATCH_KERNELS = ("cas-register", "register")
+
+
+def packed_state_bound(kernel: "KernelModel", n_intern: int) -> int:
+    """Exclusive upper bound of a PACKED_STATE_KERNELS kernel's one-word
+    state values. NIL is remapped to the bound itself (nil_id), so packed
+    state ids live in [0, bound] and need ``bound.bit_length()`` bits.
+    Every family the port has ranges over the intern table."""
+    del kernel
+    return max(n_intern, 2)
 
 # Max value words per op: cas carries [cur, new]; everything else uses v[0].
 VALUE_WIDTH = 2

@@ -1,0 +1,320 @@
+"""The sparse engine's key kernels against the JAX package, bit for bit:
+the plain torch versions of ``dedup_keys``, ``compact_keys`` and the fused
+``fixpoint`` against the Pallas kernels (interpret mode) and the lax /
+unfused formulations they replace. Keys are integers, so every
+comparison is exact (tolerance 0)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu import models as jm
+from jepsen_tpu.lin import bfs as jbfs
+from jepsen_tpu.lin import prepare as jprep
+from jepsen_tpu.lin import psort as jpsort
+from jepsen_tpu.lin import psort_fused as jfused
+from jepsen_tpu.lin import synth as jsynth
+from jepsen_tpu_torch import _u32
+from jepsen_tpu_torch import models as tm
+from jepsen_tpu_torch.lin import bfs as tbfs
+from jepsen_tpu_torch.lin import prepare as tprep
+from jepsen_tpu_torch.lin import psort as tpsort
+from jepsen_tpu_torch.lin import psort_fused as tfused
+from jepsen_tpu_torch.lin import synth as tsynth
+
+FILL = 0xFFFFFFFF
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain versions run many tiny torch ops; on a loaded machine the
+    barrier waits of torch's CPU thread pool dominate them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    """A numpy u32 array as the raw int32 tensor the port carries."""
+    return _u32.bitmap_from_numpy(np.asarray(a, np.uint32), "cpu")
+
+
+def _np(t):
+    return _u32.bitmap_to_numpy(t)
+
+
+# (n, cap): padded sizes 1024, 2048, 4096; each case overflows its cap
+# in at least one of its inputs.
+DEDUP_SHAPES = [(1024, 256), (1500, 512), (4096, 1000)]
+
+
+def _dedup_inputs(n, cap):
+    """Seeded inputs: heavy duplication with mixed validity, a set of
+    distinct keys past cap, and all-invalid keys."""
+    rng = np.random.default_rng(n * 31 + cap)
+    dup = rng.integers(0, 1 << 10, n).astype(np.uint32)
+    wide = rng.permutation(1 << 20)[:n].astype(np.uint32)
+    return [(dup, rng.random(n) < 0.6),
+            (wide, rng.random(n) < 0.9),
+            (dup, np.zeros(n, bool))]
+
+
+@pytest.fixture(scope="module")
+def jax_dedups():
+    """Every dedup input with the Pallas kernel's (interpret mode) and the
+    lax formulation's outputs, computed once."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT", "interpret")
+        for n, cap in DEDUP_SHAPES:
+            for i, (keys, valid) in enumerate(_dedup_inputs(n, cap)):
+                k, v = jnp.asarray(keys), jnp.asarray(valid)
+                pk = jpsort.dedup_keys(k, v, cap)
+                lk = jbfs._dedup_keys(k, v, cap, use_psort=False)
+                out[(n, cap, i)] = (keys, valid,
+                                    [tuple(np.asarray(x) for x in r)
+                                     for r in (pk, lk)])
+    return out
+
+
+@pytest.mark.parametrize("n,cap", DEDUP_SHAPES)
+def test_dedup_keys_plain_matches_pallas_and_lax(jax_dedups, n, cap):
+    overflowed = False
+    for i in range(3):
+        keys, valid, refs = jax_dedups[(n, cap, i)]
+        k, c, o = tpsort.dedup_keys_plain(_t(keys), torch.from_numpy(valid),
+                                          cap)
+        for rk, rc, ro in refs:
+            # The lax twin returns keys[:min(n, cap)]; past n the kernel's
+            # padded output is KEY_FILL.
+            got = _np(k)
+            assert np.array_equal(got[:rk.size], rk.astype(np.uint32))
+            assert (got[rk.size:] == FILL).all()
+            assert int(c) == int(rc)
+            assert bool(o) == bool(ro)
+        overflowed |= bool(o)
+    assert overflowed
+
+
+@pytest.mark.parametrize("n,cap", DEDUP_SHAPES)
+def test_dedup_keys_sort_matches_lax(jax_dedups, n, cap):
+    """The engine's dedup past the kernels' size gate is the reference's
+    lax.sort formulation, at any size."""
+    for i in range(3):
+        keys, valid, (_, (rk, rc, ro)) = jax_dedups[(n, cap, i)]
+        k, c, o = tbfs._dedup_keys_sort(_t(keys), torch.from_numpy(valid),
+                                        cap)
+        assert np.array_equal(_np(k), rk.astype(np.uint32))
+        assert (int(c), bool(o)) == (int(rc), bool(ro))
+
+
+@pytest.mark.parametrize("n_live", [700, 1024])
+def test_filter_pass_keys_past_the_gate_matches_lax(monkeypatch, n_live):
+    """The return filter's compaction with the kernel gated off (as past
+    PSORT_MAX_N) against the reference's lax.sort filter."""
+    cap, b, s = 1024, 3, 5
+    rng = np.random.default_rng(n_live)
+    keys = np.full(cap, FILL, np.uint32)
+    keys[:n_live] = np.sort(rng.choice(1 << 24, n_live, replace=False))
+    monkeypatch.setattr(tpsort, "available", lambda n: False)
+    tk, tc, td = tbfs._filter_pass_keys(_t(keys), n_live, s, cap=cap, b=b)
+    jk, jc, jd = jbfs._filter_pass_keys(jnp.asarray(keys), jnp.int32(n_live),
+                                        jnp.int32(s), cap=cap, b=b,
+                                        use_psort=False)
+    assert np.array_equal(_np(tk), np.asarray(jk))
+    assert (tc, td) == (int(jc), bool(jd))
+    assert 0 < tc < n_live
+
+
+@pytest.fixture(scope="module")
+def jax_compacts():
+    """compact_keys inputs and the Pallas kernel's outputs: the return
+    filter's sorted-with-holes keys, and arbitrary keys (duplicates, bit
+    31 set, holes) the kernel must also match."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT", "interpret")
+        for n, cap in [(1024, 256), (2048, 2048), (1500, 1024)]:
+            rng = np.random.default_rng(n + cap)
+            holes = np.sort(rng.choice(1 << 20, n, replace=False)) \
+                .astype(np.uint32)
+            holes[rng.random(n) < 0.4] = FILL
+            arb = rng.integers(0, 1 << 32, n, dtype=np.uint64) \
+                .astype(np.uint32)
+            arb[rng.random(n) < 0.3] = FILL
+            arb[: n // 8] = arb[n // 8: 2 * (n // 8)]
+            for i, keys in enumerate((holes, arb)):
+                ok, oc = jpsort.compact_keys(jnp.asarray(keys), cap)
+                out[(n, cap, i)] = (keys, np.asarray(ok), int(oc))
+    return out
+
+
+@pytest.mark.parametrize("n,cap", [(1024, 256), (2048, 2048), (1500, 1024)])
+def test_compact_keys_plain_matches_pallas(jax_compacts, n, cap):
+    for i in range(2):
+        keys, rk, rc = jax_compacts[(n, cap, i)]
+        k, c = tpsort.compact_keys_plain(_t(keys), cap)
+        assert np.array_equal(_np(k), rk.astype(np.uint32))
+        assert int(c) == rc
+        # The engine's filter path: lax.sort of the same keys.
+        if i == 0:
+            lax = np.sort(keys)[:cap]
+            assert np.array_equal(_np(k)[:lax.size], lax)
+
+
+def test_wrappers_run_plain_on_the_cpu_and_check_their_contract():
+    rng = np.random.default_rng(3)
+    keys = _t(rng.integers(0, 1 << 12, 2000))
+    valid = torch.ones(2000, dtype=torch.bool)
+    before = dict(tpsort.LAUNCHES)
+    a = tpsort.dedup_keys(keys, valid, 512)
+    b = tpsort.dedup_keys_plain(keys, valid, 512)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(tpsort.compact_keys(keys, 512)[0],
+                       tpsort.compact_keys_plain(keys, 512)[0])
+    assert tpsort.LAUNCHES == before            # no kernel launched
+    with pytest.raises(ValueError, match="contract"):
+        tpsort.dedup_keys(keys[:100], valid[:100], 2048)
+    with pytest.raises(ValueError, match="int32"):
+        tpsort.compact_keys(keys.to(torch.int64), 512)
+    assert tpsort.available(1 << 19) and not tpsort.available((1 << 19) + 1)
+    assert tpsort.pad_size(1500) == 2048 and tpsort.pad_size(10) == 1024
+
+
+# --- the fused fixpoint ---------------------------------------------------
+
+
+def _packed_pair(n=60, concurrency=16, seed=7, value_range=5):
+    kw = dict(concurrency=concurrency, seed=seed, value_range=value_range,
+              crash_prob=0)
+    pj = jprep.prepare(jm.cas_register(),
+                       jsynth.generate_register_history(n, **kw))
+    pt = tprep.prepare(tm.cas_register(),
+                       tsynth.generate_register_history(n, **kw))
+    return pj, pt
+
+
+CAP = 256
+
+
+@pytest.fixture(scope="module")
+def fixpoint_case():
+    """A mid-history row of ``_packed(60, 16, 7)`` with live mutator
+    columns, its tables from both packages, and the Pallas kernel's
+    (interpret mode) fixpoints: converged from the initial config, at
+    it_max=1, and from a 256-key frontier that overflows cap 256."""
+    pj, pt = _packed_pair()
+    b = max(len(pj.unintern), 2).bit_length()
+    nil_id = max(len(pj.unintern), 2)
+    W = pj.window
+    exp_j = jbfs.expansion_tables(pj, b)
+    pure_j, _ = jbfs.reduction_bit_tables(pj, (W + 31) // 32)
+    r = next(i for i in range(pj.R) if np.asarray(exp_j[4])[i].sum() >= 2)
+    exp_r = tuple(jnp.asarray(t[r]) for t in exp_j)
+    cols, sats = jbfs._fused_row_tables(
+        exp_r, jnp.asarray(np.asarray(pj.active)[r]),
+        jnp.asarray(np.asarray(pj.slot_v)[r]), jnp.asarray(pure_j[r]),
+        W=W, b=b, nil_id=nil_id)
+    M = int(cols.shape[1])
+    it_max = W + 12
+
+    lo0 = np.full(CAP, FILL, np.uint32)
+    lo0[0] = nil_id
+    rng = np.random.default_rng(5)
+    big = np.sort(rng.choice(1 << (W + b - 2), CAP, replace=False)
+                  ).astype(np.uint32)
+    big = (big & ~np.uint32((1 << b) - 1)) | np.uint32(nil_id)
+    big = np.unique(big)
+    big = np.concatenate([big, np.full(CAP - big.size, FILL, np.uint32)])
+    n_big = int((big != FILL).sum())
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT_FUSED", "interpret")
+        for name, lo, cnt, itm in (("init", lo0, 1, it_max),
+                                   ("budget", lo0, 1, 1),
+                                   ("overflow", big, n_big, it_max)):
+            flo, fhi, fc, conv, ovf = jfused.fixpoint(
+                jnp.asarray(lo), None, jnp.int32(cnt), cols, sats, cap=CAP,
+                b=b, it_max=itm)
+            assert fhi is None
+            runs[name] = (lo, cnt, itm, np.asarray(flo), int(fc),
+                          bool(conv), bool(ovf))
+    return dict(pj=pj, pt=pt, r=r, b=b, nil_id=nil_id, W=W, M=M,
+                cols=np.asarray(cols), sats=np.asarray(sats), runs=runs)
+
+
+def test_fused_row_tables_match_jax(fixpoint_case):
+    fc = fixpoint_case
+    pt, r, b, W = fc["pt"], fc["r"], fc["b"], fc["W"]
+    exp_t = tbfs.expansion_tables(pt, b)
+    pure_t, _ = tbfs.reduction_bit_tables(pt, (W + 31) // 32)
+    cols, sats = tbfs._fused_row_tables(
+        tuple(t[r] for t in exp_t), pt.active[r], pt.slot_v[r], pure_t[r],
+        W=W, b=b, nil_id=fc["nil_id"])
+    assert np.array_equal(cols, fc["cols"].astype(np.uint32))
+    assert np.array_equal(sats, fc["sats"].astype(np.uint32))
+
+
+@pytest.mark.parametrize("run", ["init", "budget", "overflow"])
+def test_fixpoint_plain_matches_pallas(fixpoint_case, run):
+    fc = fixpoint_case
+    lo, cnt, itm, rlo, rcnt, rconv, rovf = fc["runs"][run]
+    flo, fhi, c, conv, ovf = tfused.fixpoint_plain(
+        _t(lo), None, cnt, _t(fc["cols"]), _t(fc["sats"]), cap=CAP,
+        b=fc["b"], it_max=itm)
+    assert fhi is None
+    assert np.array_equal(_np(flo), rlo.astype(np.uint32))
+    assert (int(c), bool(conv), bool(ovf)) == (rcnt, rconv, rovf)
+    if run == "budget":
+        assert not rconv and not rovf          # the honest budget signal
+    if run == "overflow":
+        assert rovf and rcnt > CAP             # the unclamped total
+
+
+def test_fixpoint_plain_matches_the_unfused_chain(fixpoint_case):
+    """One fused fixpoint equals the port's unfused pass chain iterated
+    to convergence (ungrouped, and grouped two columns at a time)."""
+    fc = fixpoint_case
+    pt, r, b, W, nil_id = fc["pt"], fc["r"], fc["b"], fc["W"], fc["nil_id"]
+    lo, cnt, itm, rlo, rcnt, _, _ = fc["runs"]["init"]
+    eng = tbfs._Engine(pt, torch.device("cpu"))
+    eng.load_chunk(r, 1)
+    for G, Mg in ((1, fc["M"]), (fc["M"] // 2, 2)):
+        ulo, ucnt, uovf = eng._closure_unfused(_t(lo), cnt, 0, CAP, G, Mg,
+                                               G * (W + 4) + 8)
+        assert not uovf
+        assert ucnt == rcnt
+        assert np.array_equal(_np(ulo), rlo.astype(np.uint32))
+    # The JAX package's unfused pass, iterated, agrees too.
+    exp_r = tuple(jnp.asarray(t[r]) for t in jbfs.expansion_tables(
+        fc["pj"], b))
+    pure_j, _ = jbfs.reduction_bit_tables(fc["pj"], 1)
+    jlo, jcnt = jnp.asarray(lo), jnp.int32(cnt)
+    for _ in range(itm):
+        jlo, _, jcnt, changed, ovf = jbfs._closure_pass_keys_compact(
+            jlo, None, jcnt, jnp.asarray(fc["pj"].active[r]),
+            jnp.asarray(fc["pj"].slot_v[r]), jnp.asarray(pure_j[r]), exp_r,
+            cap=CAP, W=W, b=b, nil_id=nil_id,
+            step_fn=fc["pj"].kernel.step, use_psort=False, crash_dom=False)
+        if not bool(changed):
+            break
+    assert int(jcnt) == rcnt
+    assert np.array_equal(np.asarray(jlo), rlo.astype(np.uint32))
+
+
+def test_fixpoint_wrapper_gates():
+    cols = torch.zeros((tfused.N_COL_ROWS, 8), dtype=torch.int32)
+    sats = torch.zeros((2, 8), dtype=torch.int32)
+    lo = torch.full((CAP,), -1, dtype=torch.int32)
+    before = tfused.LAUNCHES
+    out = tfused.fixpoint(lo, None, 0, cols, sats, cap=CAP, b=3, it_max=4)
+    assert tfused.LAUNCHES == before           # plain on the CPU
+    assert bool(out[3]) and int(out[2]) == 0   # empty frontier converges
+    with pytest.raises(NotImplementedError):
+        tfused.fixpoint(lo, lo, 0, cols, sats, cap=CAP, b=3, it_max=4)
+    assert tfused.fits(1024, 8, 3) and not tfused.fits(1000, 8, 3)
+    assert not tfused.fits(8, 8, 3) and not tfused.fits(1024, 8, 7)
+    assert not tfused.fits(1 << 17, 32, 3)
+    assert tfused.max_n() == tpsort.PSORT_MAX_N
