@@ -29,14 +29,31 @@ raises on a failure:
    gate admits, converged, at ``it_max=1`` and overflowing;
 8. the sparse headline: a 20k-op, concurrency-24 CAS-register history
    (window 24) through ``checker.linearizable(algorithm="gpu")``, which
-   must say valid by ``gpu-bfs`` with every sparse kernel launched; then
-   a timed device check, and one more with each kernel call's device
-   time taken by CUDA events behind a spin gate (``CallTimer``);
+   must say valid by ``gpu-bfs`` with every sparse kernel launched and
+   its known launch and fetch counts; then a device check (at 2.5k
+   ops, to keep the script inside its time limit) with each kernel
+   call's device time taken by CUDA events behind a spin gate
+   (``CallTimer``);
 9. a corrupted window-24 history through ``"gpu"`` and ``"cpu"``: both
-   invalid on the same op, with final paths from the GPU;
+   invalid on the same op and dead row, with final paths from the GPU;
 10. each sparse kernel's time, its plain version's and one PyTorch
     call's (``torch.unique``, ``torch.sort``) at the headline's most
-    frequent shapes, with its bound.
+    frequent shapes, with its bound;
+11. the pair-key kernels vs their plain versions on the card,
+    bit-exact: ``dedup_keys2`` and ``compact_keys2`` at n = 2^10 ...
+    2^19 (equal hi with different lo, lo's bit 31 as payload, holes,
+    duplicates, all invalid, overflowing caps), and ``fixpoint`` in pair
+    mode on the pair headline's own rows at every tier its gate admits
+    (both placements), converged, at ``it_max=1`` and overflowing;
+12. the pair headline: a 5k-op, concurrency-30 CAS-register history
+    (window 29, past one u32 key) through ``checker.linearizable``,
+    valid by ``gpu-bfs`` with every pair kernel launched, then a clean
+    device check and a timed one, as in phase 8;
+13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
+    and ``"cpu"``, invalid on the same op and dead row, with final
+    paths;
+14. each pair kernel's time beside its plain version, one PyTorch call
+    and its bound, at the pair headline's most frequent shapes.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -76,8 +93,12 @@ CASE_ROWS = 300
 PLAIN_ROWS = 256
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A result line, stamped with the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f}s", *a, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -191,20 +212,41 @@ def bound_ms(w, ns, rows, sweeps):
                                  else "operations")
 
 
-# --- the sparse engine (phases 7-10) ---------------------------------------
+# --- the sparse engine (phases 7-14) ---------------------------------------
 
 SPARSE = dict(n_ops=20_000, concurrency=24, seed=42, value_range=5)
+# The single-key headline's per-kernel timing pass runs at this depth
+# (window 23; its clean run, through the user's entry point, stays at the
+# full 20k ops), to keep the script inside its time limit.
+SPARSE_TIMED = dict(SPARSE, n_ops=2_500)
 # The headline history with one read corrupted early (dead row 19), so
 # the CPU oracle and the counterexample replay decide in seconds.
 SPARSE_CORRUPT_SEED = 147
+# The single-key headline's launch and fetch counts: the engine is
+# deterministic, so any change to them is a change of the engine's path.
+SPARSE_LAUNCHES = {"dedup_keys": 46_986, "compact_keys": 9_948,
+                   "fixpoint": 12_376}
+SPARSE_FETCHES = 61_995
+# The pair-key headline: CockroachDB's 30 processes, window 29 (29 + 3
+# state bits > 31). At 20k (and 10k) ops the frontier outgrows the last
+# spike cap (overflow: capacity); 5k ops decides. Halving again gives
+# window 28, which is the single-key band.
+PAIR = dict(n_ops=5_000, concurrency=30, seed=42, value_range=5)
+# A pair history past 32 bitset bits (window 37), corrupted so that it
+# dies at row 3: the GPU against the CPU oracle, with final paths. (The
+# explain replay runs the unreduced CPU search from the chunk's entry, so
+# a later death, such as seed 7's at row 15, takes minutes to explain.)
+WIDE_PAIR = dict(n_ops=2_000, concurrency=40, seed=42, value_range=5)
+WIDE_PAIR_CORRUPT_SEED = 42
 SORT_SIZES = tuple(1 << k for k in range(10, 20))
-# Rows of the sparse headline whose entry frontiers feed the fixpoint
+# Rows of a sparse headline whose entry frontiers feed the fixpoint
 # checks (the first chunk).
 FIXPOINT_ROWS = 512
 # Integer ops per compare-exchange of a comparison sort (compare,
 # select) and per key of a dedup or compaction scan; a floor on the work.
 OPS_PER_COMPARE = 2
 OPS_PER_SCAN_KEY = 2
+FILL = 0xFFFFFFFF
 
 
 def u32_err(a, b) -> int:
@@ -244,81 +286,123 @@ def sort_inputs(rng, n):
              (wide, rng.random(n) < 0.9, max(n // 4, 1)),
              (dup, np.zeros(n, bool), n)]
     holes = np.sort(rng.permutation(1 << 22)[:n]).astype(np.uint32)
-    holes[rng.random(n) < 0.4] = 0xFFFFFFFF
+    holes[rng.random(n) < 0.4] = FILL
     arb = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-    arb[rng.random(n) < 0.3] = 0xFFFFFFFF
+    arb[rng.random(n) < 0.3] = FILL
     arb[:n // 8] = arb[n // 8:2 * (n // 8)]
     compact = [(holes, n), (arb, max(n // 2, 1))]
     return dedup, compact
 
 
-def check_sort_kernels(dev) -> int:
-    """Phase 7a: dedup_keys and compact_keys against their plain versions
-    at every size 2^10 ... 2^19 and one unpadded size. Returns the max
-    word error (0, or it raises)."""
+def pair_inputs(rng, n):
+    """Seeded pair inputs at size n: dedup (hi, lo, valid, cap) cases with
+    equal hi and different lo, lo's bit 31 set as payload, duplicates,
+    FILL holes and mixed validity past cap; distinct pairs past cap; all
+    invalid; compact (hi, lo, cap) cases sorted-with-holes and arbitrary
+    (hi's bit 31 set, duplicates, holes)."""
+    import numpy as np
+
+    hi = rng.integers(0, 4, n).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    lo[::3] |= np.uint32(1 << 31)
+    hi[:n // 4], lo[:n // 4] = hi[n // 4:n // 2], lo[n // 4:n // 2]
+    hole = rng.random(n) < 0.1
+    hi[hole], lo[hole] = FILL, FILL
+    u = np.unique(rng.integers(0, 1 << 50, 2 * n, dtype=np.uint64))[:n]
+    rng.shuffle(u)
+    whi, wlo = (u >> np.uint64(32)).astype(np.uint32), u.astype(np.uint32)
+    dedup = [(hi, lo, rng.random(n) < 0.7, max(n // 8, 1)),
+             (whi, wlo, rng.random(n) < 0.9, max(n // 4, 1)),
+             (hi, lo, np.zeros(n, bool), n)]
+    s = np.sort(u)
+    shi, slo = (s >> np.uint64(32)).astype(np.uint32), s.astype(np.uint32)
+    gone = rng.random(n) < 0.4
+    shi[gone], slo[gone] = FILL, FILL
+    ahi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    alo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    ahi[:n // 8], alo[:n // 8] = ahi[n // 8:2 * (n // 8)], \
+        alo[n // 8:2 * (n // 8)]
+    gone = rng.random(n) < 0.3
+    ahi[gone], alo[gone] = FILL, FILL
+    compact = [(shi, slo, n), (ahi, alo, max(n // 2, 1))]
+    return dedup, compact
+
+
+def check_sort_kernels(dev, pair: bool) -> int:
+    """Phase 7a / 11a: dedup_keys and compact_keys (``pair``: their pair
+    twins) against their plain versions at every size 2^10 ... 2^19 and
+    one unpadded size. Returns the max word error (0, or it raises)."""
     import numpy as np
     import torch
 
     from jepsen_tpu_torch import _u32
     from jepsen_tpu_torch.lin import psort
 
-    rng = np.random.default_rng(77)
+    def t(a):
+        return _u32.bitmap_from_numpy(a, dev)
+
+    rng = np.random.default_rng(79 if pair else 77)
+    tag = "2" if pair else ""
     max_err = 0
     for n in SORT_SIZES + (1500,):
-        dedup, compact = sort_inputs(rng, n)
         flags = []
-        for keys, valid, cap in dedup:
-            k = _u32.bitmap_from_numpy(keys, dev)
-            v = torch.from_numpy(valid).to(dev)
-            kern = psort.dedup_keys(k, v, cap)
-            plain = psort.dedup_keys_plain(k, v, cap)
+        if pair:
+            dedup, compact = pair_inputs(rng, n)
+            runs = [("dedup_keys2", psort.dedup_keys2,
+                     psort.dedup_keys2_plain,
+                     (t(h), t(lo), torch.from_numpy(v).to(dev), cap))
+                    for h, lo, v, cap in dedup]
+            runs += [("compact_keys2", psort.compact_keys2,
+                      psort.compact_keys2_plain, (t(h), t(lo), cap))
+                     for h, lo, cap in compact]
+        else:
+            dedup, compact = sort_inputs(rng, n)
+            runs = [("dedup_keys", psort.dedup_keys, psort.dedup_keys_plain,
+                     (t(k), torch.from_numpy(v).to(dev), cap))
+                    for k, v, cap in dedup]
+            runs += [("compact_keys", psort.compact_keys,
+                      psort.compact_keys_plain, (t(k), cap))
+                     for k, cap in compact]
+        for name, kern_fn, plain_fn, args in runs:
+            kern = kern_fn(*args)
+            plain = plain_fn(*args)
             torch.cuda.synchronize()
             same, err = same_outputs(kern, plain)
             max_err = max(max_err, err)
             if not same:
-                raise AssertionError(f"dedup_keys != plain at n={n} "
-                                     f"cap={cap}: count {int(kern[1])} vs "
-                                     f"{int(plain[1])}, error {err}")
-            flags.append(f"{int(kern[1])}{'+' if bool(kern[2]) else ''}")
-        for keys, cap in compact:
-            k = _u32.bitmap_from_numpy(keys, dev)
-            kern = psort.compact_keys(k, cap)
-            plain = psort.compact_keys_plain(k, cap)
-            torch.cuda.synchronize()
-            same, err = same_outputs(kern, plain)
-            max_err = max(max_err, err)
-            if not same:
-                raise AssertionError(f"compact_keys != plain at n={n} "
-                                     f"cap={cap}, error {err}")
-            flags.append(str(int(kern[1])))
-        log(f"[sort-vs-plain] n={n:6d} bit_exact=True counts (dedup+ = "
+                raise AssertionError(f"{name} != plain at n={n} cap="
+                                     f"{args[-1]}, error {err}")
+            dedup_run = name.startswith("dedup")
+            cnt = int(kern[-2] if dedup_run else kern[-1])
+            flags.append(f"{cnt}{'+' if dedup_run and bool(kern[-1]) else ''}")
+        log(f"[sort{tag}-vs-plain] n={n:6d} bit_exact=True counts (dedup+ = "
             f"overflow; then compact) {' '.join(flags)}")
     return max_err
 
 
 def row_frontiers(eng, rows: int):
-    """The entry frontier (row, lo, count) of each of the first ``rows``
-    rows of ``eng``'s history, through the engine's own row loop at the
-    top chunk cap."""
+    """The entry frontier (row, lo, hi, count) of each of the first
+    ``rows`` rows of ``eng``'s history, through the engine's own row loop
+    at the top chunk cap."""
     from jepsen_tpu_torch.lin import bfs
 
-    lo = eng.init_keys(bfs.PACKED_CAP_SCHEDULE[-1])
+    lo, hi = eng.init_keys(bfs.PACKED_CAP_SCHEDULE[-1])
     count = 1
     out = []
     for r in range(min(rows, eng.p.R)):
         base = r - r % bfs.CHUNK
         eng.load_chunk(base, bfs.CHUNK)
-        out.append((r, lo, count))
-        lo, count, dead, ovf = eng.run_row(r - base, lo, count, True)
+        out.append((r, lo, hi, count))
+        lo, hi, count, dead, ovf = eng.run_row(r - base, lo, hi, count, True)
         if dead or ovf:
-            raise AssertionError(f"row {r} of the sparse headline: dead="
-                                 f"{dead} overflow={ovf}")
+            raise AssertionError(f"row {r}: dead={dead} overflow={ovf}")
     return out
 
 
-def fixpoint_inputs(eng, r: int, lo, count: int, tier: int):
+def fixpoint_inputs(eng, r: int, lo, hi, count: int, tier: int):
     """The fused fixpoint's inputs for absolute row r at ``tier``:
-    (lo[:tier], count, cols, sats, it_max) on the engine's device."""
+    (lo[:tier], hi[:tier] or None, count, cols, sats, it_max) on the
+    engine's device."""
     import numpy as np
 
     from jepsen_tpu_torch import _u32
@@ -333,70 +417,86 @@ def fixpoint_inputs(eng, r: int, lo, count: int, tier: int):
     Mg = max(1, bfs._GROUP_BOUND // tier - 1)
     G = -(-eng.M // Mg) if Mg < eng.M else 1
     it_max = G * (eng.W + 4) + 8
-    return (lo[:tier].contiguous(), count,
-            _u32.bitmap_from_numpy(cols, eng.dev),
+    lo_t, hi_t = bfs._resize(lo, hi, tier)
+    return (lo_t.contiguous(), None if hi_t is None else hi_t.contiguous(),
+            count, _u32.bitmap_from_numpy(cols, eng.dev),
             _u32.bitmap_from_numpy(sats, eng.dev), it_max)
 
 
+def overfull_frontier(eng, rng, tier: int):
+    """A frontier of ``tier`` distinct random configs (nil state), raw
+    (lo, hi or None) words: a full tier, whose closure overflows."""
+    import numpy as np
+
+    from jepsen_tpu_torch import _u32
+
+    bits = eng.W + eng.b - 1
+    k = np.unique(rng.integers(0, 1 << bits, 2 * tier, dtype=np.uint64)
+                  & ~np.uint64((1 << eng.b) - 1) | np.uint64(eng.nil_id))
+    rng.shuffle(k)
+    k = np.sort(k[:tier])
+    lo = _u32.bitmap_from_numpy(k.astype(np.uint32), eng.dev)
+    hi = _u32.bitmap_from_numpy((k >> np.uint64(32)).astype(np.uint32),
+                                eng.dev) if eng.pair else None
+    return lo, hi, k.size
+
+
 def check_fixpoint(eng, fronts) -> tuple[int, list]:
-    """Phase 7b: fixpoint vs plain on real rows at every tier ``fits``
-    admits: converged, it_max=1, and a full-tier entry that overflows.
-    Returns (max word error, tiers checked)."""
+    """Phase 7b / 11b: fixpoint vs plain on real rows at every tier
+    ``fits`` admits: converged, it_max=1, and a full-tier entry that
+    overflows. Returns (max word error, tiers checked)."""
     import numpy as np
     import torch
 
-    from jepsen_tpu_torch import _u32
     from jepsen_tpu_torch.lin import bfs, psort, psort_fused, psort_fused_cuda
 
-    rng = np.random.default_rng(78)
+    rng = np.random.default_rng(80 if eng.pair else 78)
+    tag = "2" if eng.pair else ""
     max_err = 0
     tiers = [t for t in bfs.ROW_TIERS + bfs.PACKED_CAP_SCHEDULE[-1:]
              if psort_fused.fits(t, eng.M, eng.b)]
-    shared = psort_fused_cuda.shared_max_n()
+    shared = psort_fused_cuda.shared_max_n(eng.pair)
     # Passes each recorded row's closure needs, from its smallest tier;
     # each tier takes the row needing most passes among those it holds.
     need = []
-    for r, lo, count in fronts:
+    for r, lo, hi, count in fronts:
         t = next((t for t in tiers if count * 4 <= t), None)
         if t is None:
             need.append(-1)
             continue
-        l_t, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, count, t)
+        x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, hi,
+                                                         count, t)
         need.append(int(psort_fused.fixpoint_flags(
-            l_t, cnt, cols, sats, cap=t, b=eng.b, it_max=it_max)[1][2]))
+            x, xh, cnt, cols, sats, cap=t, b=eng.b, it_max=it_max)[2][2]))
     for tier in tiers:
-        i = max((i for i, f in enumerate(fronts) if f[2] * 4 <= tier),
-                key=lambda i: (need[i], fronts[i][2]))
-        r, lo, count = fronts[i]
-        l_t, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, count,
-                                                       tier)
-        big = np.unique(rng.choice(1 << (eng.W + eng.b - 1), tier,
-                                   replace=False).astype(np.uint32)
-                        & ~np.uint32((1 << eng.b) - 1) | np.uint32(eng.nil_id))
-        full = np.full(tier, 0xFFFFFFFF, np.uint32)
-        full[:big.size] = big
-        runs = [("converged", l_t, cnt, it_max), ("it_max=1", l_t, cnt, 1),
-                ("overflow", _u32.bitmap_from_numpy(full, eng.dev),
-                 big.size, it_max)]
+        i = max((i for i, f in enumerate(fronts) if f[3] * 4 <= tier),
+                key=lambda i: (need[i], fronts[i][3]))
+        r, lo, hi, count = fronts[i]
+        x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, hi,
+                                                         count, tier)
+        blo, bhi, n_big = overfull_frontier(eng, rng, tier)
+        runs = [("converged", x, xh, cnt, it_max),
+                ("it_max=1", x, xh, cnt, 1),
+                ("overflow", blo, bhi, n_big, it_max)]
         n_pad = psort.pad_size(tier * (1 + eng.M))
-        for what, x, c, itm in runs:
-            kern = psort_fused.fixpoint_flags(x, c, cols, sats, cap=tier,
+        for what, a, ah, c, itm in runs:
+            kern = psort_fused.fixpoint_flags(a, ah, c, cols, sats, cap=tier,
                                               b=eng.b, it_max=itm)
-            plain = psort_fused.fixpoint_flags_plain(x, c, cols, sats,
+            plain = psort_fused.fixpoint_flags_plain(a, ah, c, cols, sats,
                                                      cap=tier, b=eng.b,
                                                      it_max=itm)
             torch.cuda.synchronize()
             same, err = same_outputs(kern, plain)
             max_err = max(max_err, err)
-            conv, ovf, passes, cnt = kern[1].tolist()
-            log(f"[fixpoint-vs-plain] tier={tier:6d} n_pad={n_pad:7d} "
+            conv, ovf, passes, out_cnt = kern[2].tolist()
+            log(f"[fixpoint{tag}-vs-plain] tier={tier:6d} n_pad={n_pad:7d} "
                 f"({'shared' if n_pad <= shared else 'device'}) row={r} "
-                f"{what:9s} count {c}->{cnt} passes={passes} converged="
+                f"{what:9s} count {c}->{out_cnt} passes={passes} converged="
                 f"{conv} overflow={ovf} bit_exact={same}")
             if not same:
-                raise AssertionError(f"fixpoint != plain at tier {tier} "
-                                     f"({what}): flags {kern[1].tolist()} "
-                                     f"vs {plain[1].tolist()}, error {err}")
+                raise AssertionError(f"fixpoint{tag} != plain at tier {tier}"
+                                     f" ({what}): flags {kern[2].tolist()} vs"
+                                     f" {plain[2].tolist()}, error {err}")
     return max_err, tiers
 
 
@@ -448,26 +548,28 @@ class CallTimer:
                    for host, g, s, _ in self.calls)
 
 
-def sort_bound(n: int, out_n: int, in_bytes_per_key: int):
+def sort_bound(n: int, out_n: int, in_bytes_per_key: int,
+               out_bytes_per_key: int = 4):
     """Least time for a sort-based dedup or compaction of n keys (the
     unpadded input): the bytes (keys in, keys out) over the memory rate,
     or n log2 n compares plus a scan over the integer rate."""
     import math
 
-    nbytes = n * in_bytes_per_key + 4 * out_n + 8
+    nbytes = n * in_bytes_per_key + out_bytes_per_key * out_n + 8
     ops = n * math.log2(n) * OPS_PER_COMPARE + n * OPS_PER_SCAN_KEY
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
     t_o = ops / PEAK_OPS_PER_S * 1e3
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
-def fixpoint_bound(cap: int, M: int, b: int, counts):
-    """Least time for one fused fixpoint: lo in and out and the tables,
-    or per pass, for the c carried keys entering it (``counts``), the
-    expansion and a sort of their c * (1 + M) candidates."""
+def fixpoint_bound(cap: int, M: int, b: int, counts, words: int = 1):
+    """Least time for one fused fixpoint: the keys (``words`` u32 words
+    each) in and out and the tables, or per pass, for the c carried keys
+    entering it (``counts``), the expansion and a sort of their
+    c * (1 + M) candidates."""
     import math
 
-    nbytes = 4 * (2 * cap + 10 * M + 2 * (1 << b) + 5)
+    nbytes = 4 * (2 * words * cap + 10 * M + 2 * (1 << b) + 5)
     ops = 0.0
     for c in counts:
         n = max(c * (1 + M), 2)
@@ -478,86 +580,100 @@ def fixpoint_bound(cap: int, M: int, b: int, counts):
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
-def sparse_phases(dev) -> list:
-    """Phases 7-10. Returns the sparse kernels' entries of the kernels
-    line."""
+def reset_launches():
+    from jepsen_tpu_torch.lin import psort, psort_fused
+
+    for d in (psort.LAUNCHES, psort_fused.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
+             clean_check: bool = True):
+    """A sparse headline through ``checker.linearizable(algorithm="gpu")``
+    with the launch counts of ``kernels`` (name -> (module, wrapper)) set
+    to 0 just before and read just after; then (``clean_check``) a clean
+    device check, and a device check of ``timed_h`` (default: the same
+    history) with each kernel call timed by CUDA events behind a spin
+    gate. Returns (result, launches, per-kernel summed ms of the timed
+    check)."""
     import torch
 
-    from jepsen_tpu_torch import _u32, checker
-    from jepsen_tpu_torch import models as m
-    from jepsen_tpu_torch.lin import bfs, prepare, psort, psort_fused, synth
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.lin import bfs, prepare, psort, psort_fused
 
-    model = m.cas_register()
-    h = synth.generate_register_history(**SPARSE)
+    counters = {"psort": psort.LAUNCHES, "psort_fused": psort_fused.LAUNCHES}
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
-    eng = bfs._Engine(p, dev)
-    log(f"[sparse] ops={SPARSE['n_ops']} window={p.window} R={p.R} "
-        f"b={eng.b} M={eng.M} band={bfs.band_error(p) or 'single-key'}")
-
-    # 7. kernels vs plain versions on the card
-    sort_err = check_sort_kernels(dev)
-    t0 = time.perf_counter()
-    fronts = row_frontiers(eng, FIXPOINT_ROWS)
-    log(f"[fixpoint-vs-plain] frontiers of rows 0..{len(fronts) - 1} in "
-        f"{time.perf_counter() - t0:.2f}s, counts up to "
-        f"{max(f[2] for f in fronts)}")
-    fix_err, fix_tiers = check_fixpoint(eng, fronts)
-
-    # 8. the sparse headline through the user's entry point
-    psort.LAUNCHES.update(dedup_keys=0, compact_keys=0)
-    psort_fused.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     r = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
                                                                 h)
     t_e2e = time.perf_counter() - t0
-    launches = {"dedup_keys": psort.LAUNCHES["dedup_keys"],
-                "compact_keys": psort.LAUNCHES["compact_keys"],
-                "fixpoint": psort_fused.LAUNCHES}
-    log(f"[sparse-headline] verdict={r['valid?']} analyzer="
-        f"{r.get('analyzer')} backend={r.get('backend')} max-cap="
-        f"{r.get('max-cap')} final-frontier-size="
-        f"{r.get('final-frontier-size')} launches={launches}")
-    log(f"[sparse-headline] stats={r.get('engine-stats')}")
+    launches = {k: counters[mod][k] for k, (mod, _) in kernels.items()}
+    stats = r.get("engine-stats") or {}
+    n = len(h) // 2
+    log(f"[{tag}-headline] ops={n} window={p.window} R={p.R} "
+        f"verdict={r['valid?']} analyzer={r.get('analyzer')} backend="
+        f"{r.get('backend')} max-cap={r.get('max-cap')} "
+        f"final-frontier-size={r.get('final-frontier-size')} "
+        f"launches={launches}")
+    log(f"[{tag}-headline] stats={stats}")
+    log(f"[{tag}-headline] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s "
+        f"({n / t_e2e:.0f} ops/s); fetches/row="
+        f"{stats['fetches'] / max(stats['rows'], 1):.3f}")
     if r["valid?"] is not True or r.get("analyzer") != "gpu-bfs":
-        raise AssertionError(f"sparse headline: {r}")
+        raise AssertionError(f"headline: {r}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"the sparse headline never launched {missing}")
-    # The device check alone, then again with each kernel call timed.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rr = bfs.check_packed(p, device=dev)
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t0
-    if rr["valid?"] is not True:
-        raise AssertionError(f"sparse re-check said {rr['valid?']!r}")
-    stats = rr["engine-stats"]
-    log(f"[sparse-headline] prepare={t_prep:.3f}s device-check="
-        f"{t_dev:.3f}s e2e={t_e2e:.3f}s ({SPARSE['n_ops'] / t_e2e:.0f} "
-        f"ops/s e2e, {SPARSE['n_ops'] / t_dev:.0f} ops/s device check); "
-        f"fetches/row={stats['fetches'] / max(stats['rows'], 1):.3f}")
-    timers = [CallTimer(psort, "dedup_keys"),
-              CallTimer(psort, "compact_keys"),
-              CallTimer(psort_fused, "fixpoint_flags")]
-    with timers[0], timers[1], timers[2]:
-        rt = bfs.check_packed(p, device=dev)
+        raise AssertionError(f"the headline never launched {missing}")
+    if clean_check:
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr = bfs.check_packed(p, device=dev)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        if rr["valid?"] is not True:
+            raise AssertionError(f"headline re-check said {rr['valid?']!r}")
+        log(f"[{tag}-headline] clean device check {t_dev:.3f}s "
+            f"({n / t_dev:.0f} ops/s)")
+    timed_h = h if timed_h is None else timed_h
+    pt = prepare.prepare(model, timed_h)
+    mods = {"psort": psort, "psort_fused": psort_fused}
+    timers = [CallTimer(mods[mod], fn) for mod, fn in kernels.values()]
+    for t in timers:
+        t.__enter__()
+    try:
+        t0 = time.perf_counter()
+        rt = bfs.check_packed(pt, device=dev)
+        torch.cuda.synchronize()
+        t_timed = time.perf_counter() - t0
+    finally:
+        for t in timers:
+            t.__exit__()
     if rt["valid?"] is not True:
-        raise AssertionError(f"sparse timed re-check said {rt['valid?']!r}")
-    per_kernel = dict(zip(("dedup_keys", "compact_keys", "fixpoint"),
-                          (t.total_ms() for t in timers)))
-    log("[sparse-headline] kernel device ms (CUDA events after a spin "
-        "gate, summed per call): "
-        + ", ".join(f"{k}={v:.1f} ({len(t.calls)} calls, "
-                    f"{t.unheld()} ungated)"
-                    for (k, v), t in zip(per_kernel.items(), timers))
-        + f"; kernels {sum(per_kernel.values()) / (t_dev * 1e3):.1%} of "
-        f"the device check")
+        raise AssertionError(f"headline timed re-check said {rt['valid?']!r}")
+    per_kernel = dict(zip(kernels, (t.total_ms() for t in timers)))
+    log(f"[{tag}-headline] timed run at "
+        f"{len(timed_h) // 2} ops (R={pt.R}, "
+        f"{t_timed:.3f}s): kernel device ms (CUDA events after a spin gate,"
+        " summed per call): "
+        + ", ".join(f"{k}={v:.1f} ({len(t.calls)} calls, {t.unheld()} "
+                    f"ungated)" for (k, v), t in zip(per_kernel.items(),
+                                                     timers))
+        + f"; kernels {sum(per_kernel.values()) / (t_timed * 1e3):.1%} of "
+        "the timed check")
+    return r, launches, per_kernel
 
-    # 9. a sparse counterexample, GPU against the CPU oracle
-    hc = synth.corrupt_history(h, seed=SPARSE_CORRUPT_SEED)
+
+def counterexample(dev, model, h, seed: int, tag: str):
+    """A corrupted history through ``"gpu"`` and ``"cpu"``: both invalid
+    on the same op and dead row, final paths from the GPU."""
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.lin import prepare, synth
+
+    hc = synth.corrupt_history(h, seed=seed)
     pc = prepare.prepare(model, hc)
     t0 = time.perf_counter()
     rg = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
@@ -566,127 +682,259 @@ def sparse_phases(dev) -> list:
     t0 = time.perf_counter()
     rc = checker.linearizable(algorithm="cpu").check(None, model, hc)
     t_c = time.perf_counter() - t0
-    log(f"[sparse-counterexample] window={pc.window} R={pc.R} gpu="
+    log(f"[{tag}-counterexample] window={pc.window} R={pc.R} gpu="
         f"{rg['valid?']} ({rg.get('analyzer')}, {t_g:.2f}s) cpu="
-        f"{rc['valid?']} ({t_c:.2f}s) dead-row={rg.get('dead-row')} "
-        f"op={rg.get('op')} final-paths={len(rg.get('final-paths', []))}")
+        f"{rc['valid?']} ({t_c:.2f}s) dead-row gpu={rg.get('dead-row')} "
+        f"cpu={rc.get('dead-row')} op={rg.get('op')} final-paths="
+        f"{len(rg.get('final-paths', []))}")
     if pc.window <= 20 or rg.get("analyzer") != "gpu-bfs":
-        raise AssertionError("the sparse counterexample missed the sparse "
+        raise AssertionError(f"the {tag} counterexample missed the sparse "
                              "engine")
     if rg["valid?"] is not False or rc["valid?"] is not False:
         raise AssertionError(f"corrupted history: gpu {rg['valid?']!r} "
                              f"cpu {rc['valid?']!r}")
-    if rg.get("op") != rc.get("op"):
-        raise AssertionError(f"ops differ: gpu {rg.get('op')} cpu "
-                             f"{rc.get('op')}")
+    if rg.get("op") != rc.get("op") or rg.get("dead-row") != \
+            rc.get("dead-row"):
+        raise AssertionError(f"gpu {rg.get('op')} at {rg.get('dead-row')}, "
+                             f"cpu {rc.get('op')} at {rc.get('dead-row')}")
     if not rg.get("final-paths"):
         raise AssertionError("the GPU counterexample has no final paths")
+    return pc
 
-    # 10. times at the headline's most frequent shapes
+
+def shape_times(eng, fronts, stats, pair: bool):
+    """Phase 10 / 14: each sparse kernel's time at the headline's most
+    frequent shape, its plain version's, one PyTorch call's and its
+    bound. Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
+    shape)}."""
+    import torch
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import bfs, psort, psort_fused
+
+    dev = eng.dev
+    tag = "pair" if pair else "sparse"
+    words = 2 if pair else 1
+    out = {}
     tiers = stats["tiers"]
     fused_tiers = {t: n for t, n in tiers.items()
                    if psort_fused.fits(t, eng.M, eng.b)}
     f_tier = max(fused_tiers, key=fused_tiers.get)
-    fr = max((f for f in fronts if f[2] * 4 <= f_tier),
-             key=lambda f: (f[2], f[0]))
-    l_t, cnt, cols, sats, it_max = fixpoint_inputs(eng, *fr, f_tier)
+    fr = max((f for f in fronts if f[3] * 4 <= f_tier),
+             key=lambda f: (f[3], f[0]))
+    x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, *fr, f_tier)
     n_pad = psort.pad_size(f_tier * (1 + eng.M))
-    fx_passes = int(psort_fused.fixpoint_flags(
-        l_t, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max)[1][2])
+    passes = int(psort_fused.fixpoint_flags(
+        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max)[2][2])
     # The carried count entering each pass, one plain pass at a time.
-    counts, x, c = [], l_t, cnt
-    for _ in range(fx_passes):
+    counts, a, ah, c = [], x, xh, cnt
+    for _ in range(passes):
         counts.append(int(c))
-        x, fl = psort_fused.fixpoint_flags_plain(x, c, cols, sats,
-                                                 cap=f_tier, b=eng.b,
-                                                 it_max=1)
+        a, ah, fl = psort_fused.fixpoint_flags_plain(a, ah, c, cols, sats,
+                                                     cap=f_tier, b=eng.b,
+                                                     it_max=1)
         c = fl[3]
-    fx_ms = time_chunk(lambda: psort_fused.fixpoint_flags(
-        l_t, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 20)
-    fx_plain = time_chunk(lambda: psort_fused.fixpoint_flags_plain(
-        l_t, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 2)
-    fx_bound, fx_by = fixpoint_bound(f_tier, eng.M, eng.b, counts)
-    log(f"[sparse-time] fixpoint tier={f_tier} ({fused_tiers[f_tier]} rows)"
-        f" row={fr[0]} count={fr[2]} passes={fx_passes} n_pad={n_pad} "
-        f"carried counts {counts}: "
-        f"kernel {fx_ms:.4f} ms, plain {fx_plain:.3f} ms, bound "
-        f"{fx_bound:.6f} ms ({fx_by}); no PyTorch call computes it")
+    ms = time_chunk(lambda: psort_fused.fixpoint_flags(
+        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 20)
+    plain = time_chunk(lambda: psort_fused.fixpoint_flags_plain(
+        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 2)
+    bound, by = fixpoint_bound(f_tier, eng.M, eng.b, counts, words)
+    name = "fixpoint_pair" if pair else "fixpoint"
+    out[name] = (ms, plain, None, bound, by,
+                 {"cap": f_tier, "M": eng.M, "b": eng.b, "n_pad": n_pad,
+                  "passes": passes})
+    log(f"[{tag}-time] {name} tier={f_tier} ({fused_tiers[f_tier]} rows) "
+        f"row={fr[0]} count={fr[3]} passes={passes} n_pad={n_pad} carried "
+        f"counts {counts}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+        f"{bound:.6f} ms ({by}); no PyTorch call computes it")
 
-    # compact_keys at the most frequent tier: the row's dropped keys.
+    # compact at the most frequent tier: the row's dropped keys.
     c_tier = max(tiers, key=tiers.get)
-    fr = max((f for f in fronts if f[2] * 4 <= c_tier),
-             key=lambda f: (f[2], f[0]))
-    s = int(p.ret_slot[fr[0]])
-    bit = _u32.raw_word(1 << (eng.b + s))
-    x = fr[1][:c_tier]
-    live = torch.arange(c_tier, device=dev) < fr[2]
-    dropped = torch.where(live & ((x & bit) != 0), x & ~bit,
-                          psort.KEY_FILL_RAW).contiguous()
-    ck_ms = time_chunk(lambda: psort.compact_keys(dropped, c_tier), 50)
-    ck_plain = time_chunk(lambda: psort.compact_keys_plain(dropped, c_tier),
-                          20)
-    wide = _u32.widen(dropped)
-    ck_lib = time_chunk(lambda: torch.sort(wide), 50)
-    n_pad_c = psort.pad_size(c_tier)
-    ck_bound, ck_by = sort_bound(c_tier, c_tier, 4)
-    log(f"[sparse-time] compact_keys n={c_tier} (pad {n_pad_c}): kernel "
-        f"{ck_ms:.4f} ms, plain {ck_plain:.4f} ms, torch.sort "
-        f"{ck_lib:.4f} ms, bound {ck_bound:.6f} ms ({ck_by})")
+    fr = max((f for f in fronts if f[3] * 4 <= c_tier),
+             key=lambda f: (f[3], f[0]))
+    r, lo, hi, count = fr
+    s = int(eng.p.ret_slot[r])
+    lo, hi = bfs._resize(lo, hi, c_tier)
+    live = torch.arange(c_tier, device=dev) < count
+    bit_lo, bit_hi = bfs._key_bit(eng.b + s)
+    held = (lo & bit_lo) if hi is None else (lo & bit_lo) | (hi & bit_hi)
+    keep = live & (held != 0)
+    d_lo = torch.where(keep, lo & ~bit_lo, psort.KEY_FILL_RAW).contiguous()
+    if pair:
+        d_hi = torch.where(keep, hi & ~bit_hi,
+                           psort.KEY_FILL_RAW).contiguous()
+        name, args = "compact_keys2", (d_hi, d_lo, c_tier)
+        key = _u32.pair_key(d_hi, d_lo)
+    else:
+        name, args = "compact_keys", (d_lo, c_tier)
+        key = _u32.widen(d_lo)
+    kern, plain_fn = getattr(psort, name), getattr(psort, name + "_plain")
+    ms = time_chunk(lambda: kern(*args), 50)
+    plain = time_chunk(lambda: plain_fn(*args), 20)
+    lib = time_chunk(lambda: torch.sort(key), 50)
+    bound, by = sort_bound(c_tier, c_tier, 4 * words, 4 * words)
+    out[name] = (ms, plain, lib, bound, by, {"n": c_tier, "cap": c_tier})
+    log(f"[{tag}-time] {name} n={c_tier} (pad {psort.pad_size(c_tier)}): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.sort {lib:.4f} "
+        f"ms, bound {bound:.6f} ms ({by})")
 
-    # dedup_keys at the most frequent unfused tier: real candidates.
-    unfused = {t: n for t, n in stats.get("unfused_tiers", {}).items()}
+    # dedup at the most frequent unfused tier: real candidates.
+    unfused = dict(stats.get("unfused_tiers", {}))
     d_tier = max(unfused, key=unfused.get) if unfused else \
         bfs.PACKED_CAP_SCHEDULE[0]
     Mg = min(max(1, bfs._GROUP_BOUND // d_tier - 1), eng.M)
-    fr = max(fronts, key=lambda f: (f[2], f[0]))
-    r0 = fr[0] - fr[0] % bfs.CHUNK
+    r, lo, hi, count = max(fronts, key=lambda f: (f[3], f[0]))
+    r0 = r - r % bfs.CHUNK
     eng.load_chunk(r0, bfs.CHUNK)
-    tbl = eng.row_tables(fr[0] - r0).columns(0, Mg)
-    cand, valid = bfs._expand_keys_compact(
-        bfs._resize(fr[1], d_tier), fr[2], tbl, cap=d_tier, b=eng.b,
-        nil_id=eng.nil_id, step_fn=eng.step_fn)
+    tbl = eng.row_tables(r - r0).columns(0, Mg)
+    lo, hi = bfs._resize(lo, hi, d_tier)
+    cand, cand_hi, valid = bfs._expand_keys_compact(
+        lo, hi, count, tbl, cap=d_tier, b=eng.b, nil_id=eng.nil_id,
+        step_fn=eng.step_fn)
     n_d = cand.numel()
-    dk_ms = time_chunk(lambda: psort.dedup_keys(cand, valid, d_tier), 50)
-    dk_plain = time_chunk(lambda: psort.dedup_keys_plain(cand, valid,
-                                                         d_tier), 20)
-    folded = _u32.widen(cand) | ((~valid).to(torch.int64) << 31)
-    dk_lib = time_chunk(lambda: torch.unique(folded, sorted=True), 50)
-    dk_bound, dk_by = sort_bound(n_d, d_tier, 5)
-    log(f"[sparse-time] dedup_keys n={n_d} cap={d_tier} "
-        f"({unfused.get(d_tier, 0)} passes at this tier): kernel "
-        f"{dk_ms:.4f} ms, plain {dk_plain:.4f} ms, torch.unique "
-        f"{dk_lib:.4f} ms, bound {dk_bound:.6f} ms ({dk_by})")
+    if pair:
+        name, args = "dedup_keys2", (cand_hi, cand, valid, d_tier)
+        flagged = torch.where(valid, cand_hi,
+                              cand_hi | torch.iinfo(torch.int32).min)
+        key = _u32.pair_key(flagged, cand)
+    else:
+        name, args = "dedup_keys", (cand, valid, d_tier)
+        key = _u32.widen(cand) | ((~valid).to(torch.int64) << 31)
+    kern, plain_fn = getattr(psort, name), getattr(psort, name + "_plain")
+    ms = time_chunk(lambda: kern(*args), 50)
+    plain = time_chunk(lambda: plain_fn(*args), 20)
+    lib = time_chunk(lambda: torch.unique(key, sorted=True), 50)
+    bound, by = sort_bound(n_d, d_tier, 4 * words + 1, 4 * words)
+    out[name] = (ms, plain, lib, bound, by, {"n": n_d, "cap": d_tier})
+    log(f"[{tag}-time] {name} n={n_d} cap={d_tier} ({unfused.get(d_tier, 0)}"
+        f" passes at this tier): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.unique {lib:.4f} ms, bound {bound:.6f} ms ({by})")
+    return out
 
-    src = "jepsen_tpu_torch/csrc/"
-    return [
-        {"name": "dedup_keys", "route": "cuda", "source": src + "psort.cu",
-         "replaces": "jepsen_tpu/lin/psort.py:741",
-         "launches": launches["dedup_keys"], "max_abs_err": sort_err,
-         "ms": dk_ms, "plain_ms": dk_plain, "bound_ms": dk_bound,
-         "bound_by": dk_by, "library_ms": dk_lib, "bit_exact": True,
-         "sizes": list(SORT_SIZES) + [1500],
-         "shape": {"n": n_d, "cap": d_tier},
-         "headline_ms": per_kernel["dedup_keys"]},
-        {"name": "compact_keys", "route": "cuda",
-         "source": src + "psort.cu",
-         "replaces": "jepsen_tpu/lin/psort.py:679",
-         "launches": launches["compact_keys"], "max_abs_err": sort_err,
-         "ms": ck_ms, "plain_ms": ck_plain, "bound_ms": ck_bound,
-         "bound_by": ck_by, "library_ms": ck_lib, "bit_exact": True,
-         "sizes": list(SORT_SIZES) + [1500],
-         "shape": {"n": c_tier, "cap": c_tier},
-         "headline_ms": per_kernel["compact_keys"]},
-        {"name": "fixpoint", "route": "cuda",
-         "source": src + "psort_fused.cu",
-         "replaces": "jepsen_tpu/lin/psort_fused.py:316",
-         "launches": launches["fixpoint"], "max_abs_err": fix_err,
-         "ms": fx_ms, "plain_ms": fx_plain, "bound_ms": fx_bound,
-         "bound_by": fx_by, "library_ms": None, "bit_exact": True,
-         "tiers": fix_tiers,
-         "shape": {"cap": f_tier, "M": eng.M, "b": eng.b, "n_pad": n_pad,
-                   "passes": fx_passes},
-         "headline_ms": per_kernel["fixpoint"]},
-    ]
+
+SRC = "jepsen_tpu_torch/csrc/"
+REPLACES = {"dedup_keys": "jepsen_tpu/lin/psort.py:741",
+            "compact_keys": "jepsen_tpu/lin/psort.py:679",
+            "fixpoint": "jepsen_tpu/lin/psort_fused.py:316",
+            "dedup_keys2": "jepsen_tpu/lin/psort.py:306",
+            "compact_keys2": "jepsen_tpu/lin/psort.py:726",
+            "fixpoint_pair": "jepsen_tpu/lin/psort_fused.py:316"}
+
+
+def kernel_entries(times, launches, errs, per_kernel, extra) -> list:
+    """The kernels line's entries of one band's three kernels."""
+    out = []
+    for name, (ms, plain, lib, bound, by, shape) in times.items():
+        src = "psort_fused.cu" if name.startswith("fixpoint") else "psort.cu"
+        out.append({
+            "name": name, "route": "cuda", "source": SRC + src,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "bit_exact": True, "shape": shape,
+            "headline_ms": per_kernel[name], **extra.get(name, {})})
+    return out
+
+
+def sparse_phases(dev) -> list:
+    """Phases 7-10, the single-key band. Returns its kernels' entries of
+    the kernels line."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import bfs, prepare, synth
+
+    model = m.cas_register()
+    h = synth.generate_register_history(**SPARSE)
+    p = prepare.prepare(model, h)
+    eng = bfs._Engine(p, dev)
+    log(f"[sparse] ops={SPARSE['n_ops']} window={p.window} R={p.R} "
+        f"b={eng.b} M={eng.M} pair={eng.pair}")
+    if eng.pair or bfs.band_error(p) is not None:
+        raise AssertionError("the sparse headline left the single-key band")
+
+    # 7. kernels vs plain versions on the card
+    sort_err = check_sort_kernels(dev, pair=False)
+    t0 = time.perf_counter()
+    fronts = row_frontiers(eng, FIXPOINT_ROWS)
+    log(f"[fixpoint-vs-plain] frontiers of rows 0..{len(fronts) - 1} in "
+        f"{time.perf_counter() - t0:.2f}s, counts up to "
+        f"{max(f[3] for f in fronts)}")
+    fix_err, fix_tiers = check_fixpoint(eng, fronts)
+
+    # 8. the single-key headline through the user's entry point
+    kernels = {"dedup_keys": ("psort", "dedup_keys"),
+               "compact_keys": ("psort", "compact_keys"),
+               "fixpoint": ("psort_fused", "fixpoint_flags")}
+    # Its run through the entry point is its clean run (a separate clean
+    # device check would not fit the script's time limit).
+    r, launches, per_kernel = headline(
+        dev, model, h, kernels, "sparse",
+        timed_h=synth.generate_register_history(**SPARSE_TIMED),
+        clean_check=False)
+    fetches = r["engine-stats"]["fetches"]
+    if launches != SPARSE_LAUNCHES or fetches != SPARSE_FETCHES:
+        raise AssertionError(f"single-key headline: launches {launches} "
+                             f"fetches {fetches}, expected "
+                             f"{SPARSE_LAUNCHES} and {SPARSE_FETCHES}")
+
+    # 9. a single-key counterexample, GPU against the CPU oracle
+    counterexample(dev, model, h, SPARSE_CORRUPT_SEED, "sparse")
+
+    # 10. times at the headline's most frequent shapes
+    times = shape_times(eng, fronts, r["engine-stats"], pair=False)
+    errs = {"dedup_keys": sort_err, "compact_keys": sort_err,
+            "fixpoint": fix_err}
+    extra = {"dedup_keys": {"sizes": list(SORT_SIZES) + [1500]},
+             "compact_keys": {"sizes": list(SORT_SIZES) + [1500]},
+             "fixpoint": {"tiers": fix_tiers}}
+    return kernel_entries(times, launches, errs, per_kernel, extra)
+
+
+def pair_phases(dev) -> list:
+    """Phases 11-14, the pair-key band. Returns its kernels' entries of
+    the kernels line."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import bfs, prepare, synth
+
+    model = m.cas_register()
+    h = synth.generate_register_history(**PAIR)
+    p = prepare.prepare(model, h)
+    eng = bfs._Engine(p, dev)
+    log(f"[pair] ops={PAIR['n_ops']} concurrency={PAIR['concurrency']} "
+        f"window={p.window} R={p.R} b={eng.b} M={eng.M} pair={eng.pair}")
+    if not eng.pair or bfs.band_error(p) is not None:
+        raise AssertionError("the pair headline left the pair-key band")
+
+    # 11. the pair kernels vs their plain versions on the card
+    sort_err = check_sort_kernels(dev, pair=True)
+    t0 = time.perf_counter()
+    fronts = row_frontiers(eng, FIXPOINT_ROWS)
+    log(f"[fixpoint2-vs-plain] frontiers of rows 0..{len(fronts) - 1} in "
+        f"{time.perf_counter() - t0:.2f}s, counts up to "
+        f"{max(f[3] for f in fronts)}")
+    fix_err, fix_tiers = check_fixpoint(eng, fronts)
+
+    # 12. the pair headline through the user's entry point
+    kernels = {"dedup_keys2": ("psort", "dedup_keys2"),
+               "compact_keys2": ("psort", "compact_keys2"),
+               "fixpoint_pair": ("psort_fused", "fixpoint_flags")}
+    r, launches, per_kernel = headline(dev, model, h, kernels, "pair")
+
+    # 13. a wide pair history (window > 32, two-word bitsets): a
+    # counterexample against the CPU oracle
+    hw = synth.generate_register_history(**WIDE_PAIR)
+    pc = counterexample(dev, model, hw, WIDE_PAIR_CORRUPT_SEED, "wide-pair")
+    if pc.window <= 32 or bfs.band_error(pc) is not None:
+        raise AssertionError(f"the wide pair history has window "
+                             f"{pc.window}, not a pair window past 32")
+
+    # 14. times at the headline's most frequent shapes
+    times = shape_times(eng, fronts, r["engine-stats"], pair=True)
+    errs = {"dedup_keys2": sort_err, "compact_keys2": sort_err,
+            "fixpoint_pair": fix_err}
+    extra = {"dedup_keys2": {"sizes": list(SORT_SIZES) + [1500]},
+             "compact_keys2": {"sizes": list(SORT_SIZES) + [1500]},
+             "fixpoint_pair": {"tiers": fix_tiers}}
+    return kernel_entries(times, launches, errs, per_kernel, extra)
 
 
 def main(device: str = "cuda") -> int:
@@ -890,6 +1138,7 @@ def main(device: str = "cuda") -> int:
         "bit_exact": True, "widths": widths,
         "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
     kernels += sparse_phases(dev)
+    kernels += pair_phases(dev)
     return finish(kernels, smi, kind)
 
 
@@ -897,8 +1146,8 @@ def finish(kernels, smi: str, kind: str) -> int:
     """The result lines: kernels, the card, and the contract line last."""
     import torch
 
-    log(json.dumps({"kernels": kernels}))
-    log(smi)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

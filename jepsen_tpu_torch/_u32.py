@@ -62,3 +62,38 @@ def popcount(raw: torch.Tensor) -> int:
     for k in range(32):
         total += ((w >> k) & 1).sum()
     return int(total)
+
+
+# --- pair keys --------------------------------------------------------------
+#
+# The sparse engine's pair-key band packs a config into two u32 words
+# (hi, lo), ordered as the u64 ``hi << 32 | lo``. A plain ``hi << 32 | lo``
+# in int64 is the right bit pattern but the wrong order: it goes negative
+# exactly when hi has bit 31 set, which is the invalid flag and KEY_FILL,
+# both of which must sort last. Flipping bit 63 maps u64 order onto int64
+# order; the plain versions sort and compare such keys.
+
+SIGN64 = -(1 << 63)       # bit 63 of an int64
+PAIR_FILL = (1 << 63) - 1  # the (KEY_FILL, KEY_FILL) pair as a pair key
+
+
+def pair_bits(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Raw int32 words (hi, lo) -> the int64 holding the bit pattern
+    ``hi << 32 | lo`` (bit 63 is hi's bit 31). Bitwise algebra on it is
+    the pair's; its signed order is not (see :func:`pair_key`)."""
+    if hi.dtype != torch.int32 or lo.dtype != torch.int32:
+        raise TypeError(f"pair words are raw int32, got {hi.dtype} and "
+                        f"{lo.dtype}")
+    return hi.to(torch.int64) * (1 << 32) + widen(lo)
+
+
+def pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Raw int32 words (hi, lo) -> an int64 whose signed order is the u64
+    order of ``hi << 32 | lo``: the pattern with bit 63 flipped."""
+    return pair_bits(hi, lo) ^ SIGN64
+
+
+def pair_split(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pair_key`: int64 keys -> raw int32 (hi, lo)."""
+    bits = key ^ SIGN64
+    return (bits >> 32).to(torch.int32), narrow(bits & MASK32)

@@ -8,7 +8,8 @@
   engine (windows <= 20), chunk by chunk through
   :mod:`jepsen_tpu_torch.lin.dense_cuda`'s kernel.
 - :mod:`jepsen_tpu_torch.lin.bfs`     — the sparse frontier engine for
-  wider windows (crash-free register histories on single u32 keys),
+  wider windows (crash-free register histories on single u32 keys or
+  (hi, lo) u32 pairs),
   through :mod:`jepsen_tpu_torch.lin.psort`'s and
   :mod:`jepsen_tpu_torch.lin.psort_fused`'s kernels.
 - :mod:`jepsen_tpu_torch.lin.witness` — counterexamples for device

@@ -1,16 +1,20 @@
-"""The sparse frontier engine for wide windows, single-key register band.
+"""The sparse frontier engine for wide windows: the register bands.
 
 The port of the part of :mod:`jepsen_tpu.lin.bfs` that decides
 crash-free, read-value-match register histories (cas-register,
-register) whose window plus state bits fit one u32 key: windows 21-28
-with a few interned values, the cockroach-class concurrency the dense
-bitmap engine (windows <= 20) cannot hold.
+register) past the dense engine's windows (<= 20): windows 21-57 with a
+few interned values, the cockroach-class concurrency.
 
-A config (linearized-slot bitset B, model state s) is ONE u32 key
-``B << b | s`` (state id NIL remapped to ``nil_id``); the frontier is an
-ascending, deduplicated array of keys padded with ``KEY_FILL``, carried
-on the device as raw int32 (:mod:`jepsen_tpu_torch._u32`). Per return
-event (row):
+A config (linearized-slot bitset B, model state s) is the key
+``B << b | s`` (state id NIL remapped to ``nil_id``). Where window + b
+fits 31 bits it is ONE u32 key (the single-key band); up to 60 bits
+(b <= 6) it is a pair of u32 words (hi, lo), ordered as
+``hi << 32 | lo``, with the invalid flag in hi's bit 31 (the pair-key
+band: cockroach's 30 processes give window 29, and 29 + 3 > 31). The
+frontier is an ascending, deduplicated array of keys padded with
+``KEY_FILL`` (both words, for pairs), carried on the device as raw int32
+(:mod:`jepsen_tpu_torch._u32`); ``hi`` is None in the single-key band.
+Per return event (row):
 
 1. the just-in-time closure to fixpoint: saturate each config with the
    legal pure reads, expand it by the row's mutator columns
@@ -18,11 +22,11 @@ event (row):
    launch of :func:`jepsen_tpu_torch.lin.psort_fused.fixpoint` where
    :func:`jepsen_tpu_torch.lin.psort_fused.fits` holds, else a host-
    driven chain of :func:`_closure_pass_keys_compact` passes, each one
-   :func:`jepsen_tpu_torch.lin.psort.dedup_keys`, grouped by G column
-   groups as in the reference;
+   :func:`jepsen_tpu_torch.lin.psort.dedup_keys` (pairs:
+   ``dedup_keys2``), grouped by G column groups as in the reference;
 2. the return filter: configs must hold the returner's bit, which is
-   then dropped; :func:`jepsen_tpu_torch.lin.psort.compact_keys` packs
-   the survivors when any config was dropped.
+   then dropped; :func:`jepsen_tpu_torch.lin.psort.compact_keys` (pairs:
+   ``compact_keys2``) packs the survivors when any config was dropped.
 
 Rows run on a count-tiered prefix of the frontier (:data:`ROW_TIERS`),
 with a retry at the top tier on overflow; chunks of :data:`CHUNK` rows
@@ -34,10 +38,9 @@ filter) picks the next row's tier, where the reference switches tiers on
 the device.
 
 Left out, each an honest ``unknown`` naming it (:func:`band_error`):
-pair keys (windows past 31 - b bits), the crash-dom band (any crashed
-slot) with its host-row executor, the generic packed band (mutex), the
-multiword formulation, supervision, checkpoint/resume and the
-incremental entry.
+the crash-dom band (any crashed slot, at either key width) with its
+host-row executor, the generic packed band (mutex), the multiword
+formulation, supervision, checkpoint/resume and the incremental entry.
 """
 
 from __future__ import annotations
@@ -108,6 +111,35 @@ def _dedup_keys_sort(key, valid, cap):
     out, _ = torch.sort(torch.where(mask, s, KEY_FILL))
     return (_u32.narrow(out[:cap]), torch.clamp(total, max=cap)
             .to(torch.int32), total > cap)
+
+
+def _dedup_keys2(hi, lo, valid, cap):
+    """Pair-key twin of :func:`_dedup_keys` for 64-bit configs (hi, lo
+    raw int32 words, order ``hi << 32 | lo``, the invalid flag in hi's bit
+    31): :func:`jepsen_tpu_torch.lin.psort.dedup_keys2` within the
+    kernels' size gate, :func:`_dedup_keys2_sort` above it. Returns
+    (hi[cap], lo[cap], count, overflow) as tensors."""
+    if psort.available(lo.numel()):
+        return psort.dedup_keys2(hi, lo, valid, cap)
+    return _dedup_keys2_sort(hi, lo, valid, cap)
+
+
+def _dedup_keys2_sort(hi, lo, valid, cap):
+    """The reference's two-key lax.sort dedup in torch.sort, for candidate
+    spaces past the kernels' size gate: sort the flag-folded pair keys
+    (:func:`jepsen_tpu_torch._u32.pair_key`), turn the invalid and
+    repeated ones into the FILL pair, and sort again."""
+    n = lo.numel()
+    flagged = torch.where(valid, hi, hi | torch.iinfo(torch.int32).min)
+    s, _ = torch.sort(_u32.pair_key(flagged, lo))
+    first = torch.arange(n, device=s.device) == 0
+    # pair_key flips bit 63: a pair whose hi has bit 31 clear is negative.
+    mask = (s < 0) & (first | (s != torch.roll(s, 1)))
+    total = mask.sum()
+    out, _ = torch.sort(torch.where(mask, s, _u32.PAIR_FILL))
+    out_hi, out_lo = _u32.pair_split(out[:cap])
+    return (out_hi, out_lo, torch.clamp(total, max=cap).to(torch.int32),
+            total > cap)
 
 
 def _key_bit_words(pos):
@@ -340,16 +372,21 @@ def _fused_row_tables(exp_r, act, v_row, pure_row, *, W, b, nil_id):
 
 class RowTables(NamedTuple):
     """One row's device tables for the unfused closure pass (wide int64
-    words): the mutator columns and the saturation table."""
+    words): the mutator columns and the saturation table. The hi words
+    are the key bits past bit 31; all zero in the single-key band."""
 
     exp_lo: torch.Tensor        # [M]
+    exp_hi: torch.Tensor        # [M]
     exp_f: torch.Tensor         # [M]
     exp_v: torch.Tensor         # [M, VW]
     exp_act: torch.Tensor       # [M] bool
     exp_pred_lo: torch.Tensor   # [M]
+    exp_pred_hi: torch.Tensor   # [M]
     exp_jit: torch.Tensor       # [M] bool
     exp_rv_lo: torch.Tensor     # [M]
+    exp_rv_hi: torch.Tensor     # [M]
     sat_lo: torch.Tensor        # [2^b]
+    sat_hi: torch.Tensor        # [2^b]
 
     def columns(self, lo: int, hi: int) -> "RowTables":
         """The tables of columns [lo, hi), zero-padded past M (padding
@@ -364,17 +401,20 @@ class RowTables(NamedTuple):
                               dtype=t.dtype, device=t.device)
             return torch.cat([part, pad])
 
-        return RowTables(*(cut(t) for t in self[:-1]), self.sat_lo)
+        return RowTables(*(cut(t) for t in self[:-2]), self.sat_lo,
+                         self.sat_hi)
 
 
-def _expand_keys_compact(lo_in, count, tbl: RowTables, *, cap, b, nil_id,
-                         step_fn):
+def _expand_keys_compact(lo_in, hi_in, count, tbl: RowTables, *, cap, b,
+                         nil_id, step_fn):
     """The candidate half of :func:`_closure_pass_keys_compact`: in-place
     saturation of the carried keys and their expansion by the mutator
     columns with the chain and JIT gates. ``lo_in`` raw int32[cap],
-    ``count`` the carried count. Returns (cand raw int32[cap*(1+M)],
+    ``hi_in`` its high words for pair keys or None, ``count`` the carried
+    count. Returns (cand_lo raw int32[cap*(1+M)], cand_hi or None,
     cand_valid bool)."""
     dev = lo_in.device
+    pair = hi_in is not None
     x = _u32.widen(lo_in)
     cfg_valid = torch.arange(cap, device=dev) < count
     smask = (1 << b) - 1
@@ -388,32 +428,53 @@ def _expand_keys_compact(lo_in, count, tbl: RowTables, *, cap, b, nil_id,
     nsv = new_state[..., 0]
     pns = torch.where(nsv == int(NIL), nil_id, nsv)
     in_range = (pns >= 0) & (pns < n_sid)
-    nsat_lo = torch.where(in_range, tbl.sat_lo[pns.clamp(0, n_sid - 1)], 0)
+    pidx = pns.clamp(0, n_sid - 1)
+    nsat_lo = torch.where(in_range, tbl.sat_lo[pidx], 0)
     lo1 = torch.where(cfg_valid, x | tbl.sat_lo[sv], x)
 
     l1 = lo1.unsqueeze(1)
     already = (l1 & tbl.exp_lo) != 0
     chain_ok = (l1 & tbl.exp_pred_lo) == tbl.exp_pred_lo
     jit_ok = tbl.exp_jit | ((tbl.exp_rv_lo & ~l1) != 0)
+    if pair:
+        hi1 = torch.where(cfg_valid, _u32.widen(hi_in) | tbl.sat_hi[sv],
+                          _u32.widen(hi_in))
+        h1 = hi1.unsqueeze(1)
+        already = already | ((h1 & tbl.exp_hi) != 0)
+        chain_ok = chain_ok & ((h1 & tbl.exp_pred_hi) == tbl.exp_pred_hi)
+        jit_ok = jit_ok | ((tbl.exp_rv_hi & ~h1) != 0)
     fresh = ok & tbl.exp_act & ~already & cfg_valid.unsqueeze(1)
     legal = fresh & chain_ok & jit_ok
     new_lo = ((l1 & ~smask) | tbl.exp_lo | nsat_lo | pns) & _u32.MASK32
     cand = torch.cat([torch.where(cfg_valid, lo1, 0), new_lo.reshape(-1)])
     cand_valid = torch.cat([cfg_valid, legal.reshape(-1)])
-    return _u32.narrow(cand), cand_valid
+    cand_hi = None
+    if pair:
+        nsat_hi = torch.where(in_range, tbl.sat_hi[pidx], 0)
+        new_hi = h1 | tbl.exp_hi | nsat_hi
+        cand_hi = _u32.narrow(torch.cat([torch.where(cfg_valid, hi1, 0),
+                                         new_hi.reshape(-1)]))
+    return _u32.narrow(cand), cand_hi, cand_valid
 
 
-def _closure_pass_keys_compact(lo_in, count, tbl: RowTables, *, cap, b,
-                               nil_id, step_fn):
+def _closure_pass_keys_compact(lo_in, hi_in, count, tbl: RowTables, *,
+                               cap, b, nil_id, step_fn):
     """ONE closure pass over packed keys with mutator-compacted expansion
-    columns (the reference's non-dominance single-key branch): expand,
-    sort-dedup, and test the fixpoint against the pass INPUT. Returns
-    (lo, count, changed, overflow) as tensors."""
-    cand, valid = _expand_keys_compact(lo_in, count, tbl, cap=cap, b=b,
-                                       nil_id=nil_id, step_fn=step_fn)
+    columns (the reference's non-dominance branch, single u32 keys or
+    (hi, lo) pairs when ``hi_in`` is given): expand, sort-dedup, and test
+    the fixpoint against the pass INPUT. Returns (lo, hi or None, count,
+    changed, overflow) as tensors."""
+    cand, cand_hi, valid = _expand_keys_compact(
+        lo_in, hi_in, count, tbl, cap=cap, b=b, nil_id=nil_id,
+        step_fn=step_fn)
+    if hi_in is not None:
+        h2, l2, n2, o2 = _dedup_keys2(cand_hi, cand, valid, cap)
+        changed = torch.any(l2 != lo_in) | torch.any(h2 != hi_in) \
+            | (n2 != count)
+        return l2, h2, n2, changed, o2
     l2, n2, o2 = _dedup_keys(cand, valid, cap)
     changed = torch.any(l2 != lo_in) | (n2 != count)
-    return l2, n2, changed, o2
+    return l2, None, n2, changed, o2
 
 
 def _filter_pass_keys(keys, count: int, s: int, *, cap, b,
@@ -473,6 +534,80 @@ def _unpack_frontier_keys(keys, count, cap, b, nil_id):
     return (cfg >> b).unsqueeze(1), state.unsqueeze(1)
 
 
+def _key_bit(pos: int) -> tuple[int, int]:
+    """Raw (lo, hi) words of the single KEY-space bit ``pos``."""
+    if pos < 32:
+        return _u32.raw_word(1 << pos), 0
+    return 0, _u32.raw_word(1 << (pos - 32))
+
+
+def _filter_pass_keys2(lo, hi, count: int, s: int, *, cap, b,
+                       n_keep: int | None = None):
+    """Pair-key return filter (see :func:`_filter_pass_keys`: an injective
+    bit drop, one bit-clear when nothing is dropped, else one compacting
+    sort, :func:`jepsen_tpu_torch.lin.psort.compact_keys2`). The
+    returner's key bit b + s lies in either word. Returns (lo, hi, count,
+    dead) with host ints."""
+    bit_lo, bit_hi = _key_bit(b + s)
+    cfg_valid = torch.arange(cap, device=lo.device) < count
+    keep = cfg_valid & (((lo & bit_lo) | (hi & bit_hi)) != 0)
+    if n_keep is None:
+        n_keep = int(keep.sum())          # a blocking fetch
+    if n_keep == count:
+        return (torch.where(cfg_valid, lo & ~bit_lo, lo),
+                torch.where(cfg_valid, hi & ~bit_hi, hi), count, count == 0)
+    d_hi = torch.where(keep, hi & ~bit_hi, psort.KEY_FILL_RAW)
+    d_lo = torch.where(keep, lo & ~bit_lo, psort.KEY_FILL_RAW)
+    if psort.available(cap):
+        hi, lo, _ = psort.compact_keys2(d_hi, d_lo, cap)
+    else:
+        # Past the kernels' size gate, the reference's two-key lax.sort.
+        hi, lo = _u32.pair_split(torch.sort(_u32.pair_key(d_hi, d_lo))[0])
+    return lo, hi, n_keep, n_keep == 0
+
+
+def _pack_frontier_keys2(bits, state, count, cap, b, nil_id):
+    """The pair-key encoding of windows past 31 - b bits: the 64-bit config
+    ``bitset << b | state-id`` split into (lo, hi) u32 words, (KEY_FILL,
+    KEY_FILL) past count, padded or cut to ``cap``. int64 tensors ``bits``
+    [n, nw] (u32 words), ``state`` [n, 1] -> raw int32 (lo[cap],
+    hi[cap])."""
+    n = bits.shape[0]
+    dev = bits.device
+    sv = state[:, 0].to(torch.int64)
+    ps = torch.where(sv == int(NIL), nil_id, sv)
+    b0 = bits[:, 0].to(torch.int64)
+    b1 = bits[:, 1].to(torch.int64) if bits.shape[1] > 1 \
+        else torch.zeros_like(b0)
+    lo = ((b0 << b) | ps) & _u32.MASK32
+    hi = ((b0 >> (32 - b)) | (b1 << b)) & _u32.MASK32
+    live = torch.arange(n, device=dev) < count
+    lo = torch.where(live, lo, KEY_FILL)
+    hi = torch.where(live, hi, KEY_FILL)
+    if cap > n:
+        pad = torch.full((cap - n,), KEY_FILL, dtype=torch.int64,
+                         device=dev)
+        lo, hi = torch.cat([lo, pad]), torch.cat([hi, pad])
+    return _u32.narrow(lo[:cap]), _u32.narrow(hi[:cap])
+
+
+def _unpack_frontier_keys2(lo, hi, count, cap, b, nil_id, nw):
+    """Inverse of :func:`_pack_frontier_keys2`: raw int32 (lo, hi) ->
+    (bits int64[cap, nw] of u32 words, state int64[cap, 1] with NIL
+    restored), zero past count."""
+    live = torch.arange(cap, device=lo.device) < count
+    lo = torch.where(live, _u32.widen(lo[:cap]), 0)
+    hi = torch.where(live, _u32.widen(hi[:cap]), 0)
+    mask = (1 << b) - 1
+    sv = lo & mask
+    state = torch.where(live, torch.where(sv == nil_id, int(NIL), sv), 0)
+    cols = [(lo >> b) | ((hi & mask) << (32 - b))]
+    if nw > 1:
+        cols.append(hi >> b)
+    cols += [torch.zeros_like(lo)] * (nw - len(cols))
+    return torch.stack(cols, dim=1), state.unsqueeze(1)
+
+
 def _chunk_slice(a: np.ndarray, base: int, chunk: int) -> np.ndarray:
     """Static-shape chunk slice, zero-padded past the end of the table."""
     end = min(base + chunk, a.shape[0])
@@ -488,12 +623,16 @@ def _fill(n: int, device) -> torch.Tensor:
                       device=device)
 
 
-def _resize(lo: torch.Tensor, cap: int) -> torch.Tensor:
-    """The frontier array cut or KEY_FILL-padded to ``cap`` (live keys
-    are a prefix, so cutting past the count drops nothing)."""
-    if lo.shape[0] >= cap:
-        return lo[:cap]
-    return torch.cat([lo, _fill(cap - lo.shape[0], lo.device)])
+def _resize(lo: torch.Tensor, hi, cap: int):
+    """The frontier words cut or KEY_FILL-padded to ``cap`` (live keys are
+    a prefix, so cutting past the count drops nothing); ``hi`` None stays
+    None."""
+    def fit(t):
+        if t.shape[0] >= cap:
+            return t[:cap]
+        return torch.cat([t, _fill(cap - t.shape[0], t.device)])
+
+    return fit(lo), None if hi is None else fit(hi)
 
 
 def band_error(p: PackedHistory) -> str | None:
@@ -509,10 +648,7 @@ def band_error(p: PackedHistory) -> str | None:
         return f"multiword band ({name}) not yet ported"
     rvm = name in READ_VALUE_MATCH_KERNELS
     b = packed_state_bound(p.kernel, len(p.unintern)).bit_length()
-    if p.window + b > 31:
-        if rvm and b <= 6 and p.window + b <= 60:
-            return (f"pair-key band (window {p.window} + {b} state bits "
-                    "> 31) not yet ported")
+    if p.window + b > 31 and not (rvm and b <= 6 and p.window + b <= 60):
         return (f"multiword band (window {p.window} + {b} state bits) not "
                 "yet ported")
     if not rvm or b > 6:
@@ -524,21 +660,26 @@ def band_error(p: PackedHistory) -> str | None:
 
 class ChunkOut(NamedTuple):
     """A chunk's result. ``rows_done`` counts the dead or overflowing row
-    itself; ``pre_lo``/``pre_count`` are the frontier before the last row
-    run (the spike hand-off and its explain snapshot start there)."""
+    itself; ``pre_*`` are the frontier before the last row run (the spike
+    hand-off and its explain snapshot start there). ``hi``/``pre_hi`` are
+    the pair keys' high words, None in the single-key band."""
 
     lo: torch.Tensor
+    hi: torch.Tensor | None
     count: int
     rows_done: int
     dead: bool
     ovf: bool
     pre_lo: torch.Tensor
+    pre_hi: torch.Tensor | None
     pre_count: int
 
 
 class _Engine:
     """One history's sparse search state: host tables, their per-chunk
-    device copies, and the row and chunk loops."""
+    device copies, and the row and chunk loops. A frontier is ``lo`` and,
+    in the pair-key band (window + b > 31), ``hi``; ``hi`` is None in the
+    single-key band, as the reference threads ``key_hi``."""
 
     def __init__(self, p: PackedHistory, device):
         self.p = p
@@ -546,24 +687,41 @@ class _Engine:
         self.nil_id = packed_state_bound(p.kernel, len(p.unintern))
         self.b = self.nil_id.bit_length()
         self.W = p.window
+        self.nw = (p.window + 31) // 32
+        self.pair = p.window + self.b > 31
         self.step_fn = p.kernel.step
-        self.pure_h, _ = reduction_bit_tables(p, (p.window + 31) // 32)
+        self.pure_h, _ = reduction_bit_tables(p, self.nw)
         self.exp_h = expansion_tables(p, self.b)
         self.M = int(self.exp_h[0].shape[-1])
         self._chunk_key = None
         # Work counters: rows run per tier, fused rows, unfused closure
-        # passes (per tier), top-tier retries, and blocking
+        # passes (per tier), return filters that dropped configs (one
+        # compacting sort each), top-tier retries, and blocking
         # device-to-host fetches.
         self.stats = {"rows": 0, "tiers": {}, "fused_rows": 0,
                       "unfused_passes": 0, "unfused_tiers": {},
-                      "retries": 0, "fetches": 0}
+                      "compactions": 0, "retries": 0, "fetches": 0}
 
-    def init_keys(self, cap: int) -> torch.Tensor:
-        bits = torch.zeros((1, 1), dtype=torch.int64, device=self.dev)
+    def init_keys(self, cap: int):
+        """The initial frontier (empty bitset, the initial state) as
+        (lo, hi) words of ``cap`` keys; hi is None for single keys."""
+        bits = torch.zeros((1, self.nw), dtype=torch.int64, device=self.dev)
         state = torch.as_tensor(np.asarray(self.p.init_state, np.int64),
                                 device=self.dev).view(1, 1)
-        return _pack_frontier_keys(bits, state, 1, cap, self.b,
-                                   self.nil_id)
+        if self.pair:
+            return _pack_frontier_keys2(bits, state, 1, cap, self.b,
+                                        self.nil_id)
+        return _pack_frontier_keys(bits[:, :1], state, 1, cap, self.b,
+                                   self.nil_id), None
+
+    def unpack(self, lo, hi, count: int):
+        """A frontier decoded to (bits int64[cap, nw], state int64[cap,
+        1])."""
+        if hi is None:
+            return _unpack_frontier_keys(lo, count, lo.shape[0], self.b,
+                                         self.nil_id)
+        return _unpack_frontier_keys2(lo, hi, count, lo.shape[0], self.b,
+                                      self.nil_id, self.nw)
 
     def load_chunk(self, base: int, rows: int) -> None:
         """Device tables for rows [base, base + rows)."""
@@ -582,25 +740,27 @@ class _Engine:
 
         self.cols = _u32.bitmap_from_numpy(cols, dev)
         self.sats = _u32.bitmap_from_numpy(sats, dev)
-        (exp_lo, _eh, exp_f, exp_v, exp_act, exp_pred_lo, _ph, _cl, _ch,
-         _rl, _rh, exp_jit, exp_rv_lo, _rvh) = sl
+        (exp_lo, exp_hi, exp_f, exp_v, exp_act, exp_pred_lo, exp_pred_hi,
+         _cl, _ch, _rl, _rh, exp_jit, exp_rv_lo, exp_rv_hi) = sl
         self.rows = RowTables(
-            put(exp_lo), put(exp_f), put(exp_v), put(exp_act, bool),
-            put(exp_pred_lo), put(exp_jit, bool), put(exp_rv_lo),
-            put(sats[:, 0]))
+            put(exp_lo), put(exp_hi), put(exp_f), put(exp_v),
+            put(exp_act, bool), put(exp_pred_lo), put(exp_pred_hi),
+            put(exp_jit, bool), put(exp_rv_lo), put(exp_rv_hi),
+            put(sats[:, 0]), put(sats[:, 1]))
         self.ret = _chunk_slice(np.asarray(p.ret_slot), base, rows).tolist()
         self._chunk_key = (base, rows)
 
     def row_tables(self, r: int) -> RowTables:
         return RowTables(*(t[r] for t in self.rows))
 
-    def row_at_tier(self, tier: int, r: int, lo, count: int, fused: bool):
+    def row_at_tier(self, tier: int, r: int, lo, hi, count: int,
+                    fused: bool):
         """One full row (closure fixpoint + return filter) on the first
         ``tier`` entries of the frontier; ``fused`` allows the fused
-        fixpoint where it fits. Returns (lo[cap], count, dead, overflow)
-        with host ints and flags."""
+        fixpoint where it fits. Returns (lo[cap], hi[cap] or None, count,
+        dead, overflow) with host ints and flags."""
         cap = lo.shape[0]
-        l_t = lo[:tier] if tier < cap else lo
+        l_t, h_t = _resize(lo, hi, tier)
         M = self.M
         Mg = max(1, _GROUP_BOUND // tier - 1)
         G = -(-M // Mg) if Mg < M else 1
@@ -613,39 +773,44 @@ class _Engine:
         st["rows"] += 1
         st["tiers"][tier] = st["tiers"].get(tier, 0) + 1
         if fused and psort_fused.fits(tier, M, self.b):
-            l_t, flags = psort_fused.fixpoint_flags(
-                l_t, count, self.cols[r], self.sats[r], cap=tier, b=self.b,
-                it_max=it_max)
-            bit = _u32.raw_word(1 << (self.b + s))
+            l_t, h_t, flags = psort_fused.fixpoint_flags(
+                l_t, h_t, count, self.cols[r], self.sats[r], cap=tier,
+                b=self.b, it_max=it_max)
+            bit_lo, bit_hi = _key_bit(self.b + s)
+            held = (l_t & bit_lo) if h_t is None \
+                else (l_t & bit_lo) | (h_t & bit_hi)
             keep = (torch.arange(tier, device=self.dev) < flags[3]) \
-                & ((l_t & bit) != 0)
+                & (held != 0)
             # The row's one blocking fetch: the flags and the survivors
             # of the return filter.
             st["fused_rows"] += 1
             st["fetches"] += 1
             conv, o2, _, cnt, n_keep = torch.cat(
                 (flags, keep.sum().to(torch.int32).view(1))).tolist()
-            ovf = bool(o2) or not conv
+            if o2 or not conv:
+                return lo, hi, cnt, False, True
+        else:
+            l_t, h_t, cnt, ovf = self._closure_unfused(
+                l_t, h_t, count, r, tier, G, Mg, it_max)
             if ovf:
-                return lo, cnt, False, True
+                return lo, hi, cnt, False, True
+            st["fetches"] += 1
+            n_keep = None
+        if h_t is None:
             l_t, count, dead = _filter_pass_keys(l_t, cnt, s, cap=tier,
                                                  b=self.b, n_keep=n_keep)
         else:
-            l_t, count, ovf = self._closure_unfused(l_t, count, r, tier, G,
-                                                    Mg, it_max)
-            if ovf:
-                return lo, count, False, True
-            st["fetches"] += 1
-            l_t, count, dead = _filter_pass_keys(l_t, count, s, cap=tier,
-                                                 b=self.b)
-        if tier < cap:
-            l_t = torch.cat([l_t, _fill(cap - tier, self.dev)])
-        return l_t, count, dead, False
+            l_t, h_t, count, dead = _filter_pass_keys2(
+                l_t, h_t, cnt, s, cap=tier, b=self.b, n_keep=n_keep)
+        if count != cnt:
+            st["compactions"] += 1
+        l_t, h_t = _resize(l_t, h_t, cap)
+        return l_t, h_t, count, dead, False
 
-    def _closure_unfused(self, lo, count: int, r: int, tier: int, G: int,
-                         Mg: int, it_max: int):
+    def _closure_unfused(self, lo, hi, count: int, r: int, tier: int,
+                         G: int, Mg: int, it_max: int):
         """The grouped pass chain: columns Mg at a time, ending after G
-        consecutive unchanged passes; one fetch per pass. Returns (lo,
+        consecutive unchanged passes; one fetch per pass. Returns (lo, hi,
         count, overflow)."""
         tbl = self.row_tables(r)
         groups = [tbl.columns(g * Mg, (g + 1) * Mg) for g in range(G)] \
@@ -653,8 +818,8 @@ class _Engine:
         g = since = it = 0
         ovf = False
         while since < G and not ovf:
-            l2, n2, changed, o2 = _closure_pass_keys_compact(
-                lo, count, groups[g], cap=tier, b=self.b,
+            l2, h2, n2, changed, o2 = _closure_pass_keys_compact(
+                lo, hi, count, groups[g], cap=tier, b=self.b,
                 nil_id=self.nil_id, step_fn=self.step_fn)
             n2, changed, o2 = torch.stack(
                 (n2.to(torch.int32), changed.to(torch.int32),
@@ -669,10 +834,10 @@ class _Engine:
             # overflow.
             ovf = ovf or bool(o2) or (it + 1 >= it_max and since < G)
             it += 1
-            lo, count = l2, n2
-        return lo, count, ovf
+            lo, hi, count = l2, h2, n2
+        return lo, hi, count, ovf
 
-    def run_row(self, r: int, lo, count: int, row_tiers: bool):
+    def run_row(self, r: int, lo, hi, count: int, row_tiers: bool):
         cap = lo.shape[0]
         tiers = (tuple(t for t in ROW_TIERS if t < cap) + (cap,)
                  if row_tiers else (cap,))
@@ -680,75 +845,77 @@ class _Engine:
         # the reference.
         fused = row_tiers
         if len(tiers) == 1:
-            return self.row_at_tier(tiers[0], r, lo, count, fused)
+            return self.row_at_tier(tiers[0], r, lo, hi, count, fused)
         # Smallest tier holding TIER_MARGIN x the live count; an overflow
         # retries the row at the top tier (rows are functions of their
         # entry frontier, so the retry is exact).
         idx = sum(count * TIER_MARGIN > t for t in tiers[:-1])
-        out = self.row_at_tier(tiers[idx], r, lo, count, fused)
-        if out[3] and idx < len(tiers) - 1:
+        out = self.row_at_tier(tiers[idx], r, lo, hi, count, fused)
+        if out[4] and idx < len(tiers) - 1:
             self.stats["retries"] += 1
-            out = self.row_at_tier(tiers[-1], r, lo, count, fused)
+            out = self.row_at_tier(tiers[-1], r, lo, hi, count, fused)
         return out
 
-    def chunk(self, base: int, n_rows: int, rows: int, lo, count: int,
+    def chunk(self, base: int, n_rows: int, rows: int, lo, hi, count: int,
               row_tiers: bool = True) -> ChunkOut:
         """Up to ``n_rows`` return events from row ``base`` (tables of
         ``rows`` rows), stopping at a death or an overflow."""
         self.load_chunk(base, rows)
-        pre_lo, pre_count = lo, count
+        pre = (lo, hi, count)
         for r in range(n_rows):
-            pre_lo, pre_count = lo, count
-            lo, count, dead, ovf = self.run_row(r, lo, count, row_tiers)
+            pre = (lo, hi, count)
+            lo, hi, count, dead, ovf = self.run_row(r, lo, hi, count,
+                                                    row_tiers)
             if dead or ovf:
-                return ChunkOut(lo, count, r + 1, dead and not ovf, ovf,
-                                pre_lo, pre_count)
-        return ChunkOut(lo, count, n_rows, False, False, pre_lo, pre_count)
+                return ChunkOut(lo, hi, count, r + 1, dead and not ovf, ovf,
+                                *pre)
+        return ChunkOut(lo, hi, count, n_rows, False, False, *pre)
 
 
-def _spike_rows(eng: _Engine, r0: int, lo, count: int, *, caps, dropback,
-                cancel, snapshots):
+def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
+                dropback, cancel, snapshots):
     """Spike mode: SPIKE_CHUNK-row mini-chunks at the spike capacities,
     with the same rows as normal chunks (untiered). Processes
     mini-chunks from ``r0`` until death, cancel, overflow of the last
     cap, the history's end, or (after at least :data:`SPIKE_MIN_ROWS`
     rows) the frontier shrinking to ``dropback``. ``snapshots`` (a list)
     receives each mini-chunk's entry frontier, and on a death the dead
-    row's own entry. Returns (lo, count, next_row, dead, overflowed, cancelled,
-    top_cap_used)."""
+    row's own entry. Returns (lo, hi, count, next_row, dead, overflowed,
+    cancelled, top_cap_used)."""
     p = eng.p
     lvl = 0
     top_used = caps[0]
-    lo = _resize(lo, caps[0])
+    lo, hi = _resize(lo, hi, caps[0])
     r = r0
     while r < p.R:
         if cancel is not None and cancel.is_set():
-            return lo, count, r, False, False, True, top_used
+            return lo, hi, count, r, False, False, True, top_used
         if snapshots is not None:
-            snapshots[:] = [(r, lo, count)]
+            snapshots[:] = [(r, lo, hi, count)]
         m_n = min(SPIKE_CHUNK, p.R - r)
         while True:
-            out = eng.chunk(r, m_n, SPIKE_CHUNK, lo, count, row_tiers=False)
+            out = eng.chunk(r, m_n, SPIKE_CHUNK, lo, hi, count,
+                            row_tiers=False)
             if not out.ovf:
                 break
             if lvl + 1 >= len(caps):
-                return lo, count, r, False, True, False, top_used
+                return lo, hi, count, r, False, True, False, top_used
             lvl += 1
-            lo = _resize(lo, caps[lvl])
+            lo, hi = _resize(lo, hi, caps[lvl])
             top_used = caps[lvl]
         if out.dead:
             if snapshots is not None and out.rows_done > 1:
                 # Anchor the explain replay at the dead row's entry, so
                 # the CPU replay spans one row of a spike-sized frontier.
                 snapshots[:] = [(r + out.rows_done - 1, out.pre_lo,
-                                 out.pre_count)]
-            return (out.lo, out.count, r + out.rows_done, True, False,
-                    False, top_used)
-        lo, count = out.lo, out.count
+                                 out.pre_hi, out.pre_count)]
+            return (out.lo, out.hi, out.count, r + out.rows_done, True,
+                    False, False, top_used)
+        lo, hi, count = out.lo, out.hi, out.count
         r += m_n
         if r - r0 >= SPIKE_MIN_ROWS and count <= dropback:
             break
-    return lo, count, r, False, False, False, top_used
+    return lo, hi, count, r, False, False, False, top_used
 
 
 def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
@@ -786,7 +953,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
 
     level = 0
     cap = cap_schedule[level]
-    lo = eng.init_keys(cap)
+    lo, hi = eng.init_keys(cap)
     count = 1
     max_cap_used = cap
     snapshots: list | None = [] if explain else None
@@ -815,13 +982,13 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
         if snapshots is not None:
             # Only the last snapshot is ever replayed: the dead row is
             # always inside the current chunk.
-            snapshots[:] = [(base, lo, count)]
+            snapshots[:] = [(base, lo, hi, count)]
         if cancel is not None and cancel.is_set():
             return unknown(error="cancelled")
         n = min(chunk, p.R - base)
         spiked = None
         while True:
-            out = eng.chunk(base, n, chunk, lo, count)
+            out = eng.chunk(base, n, chunk, lo, hi, count)
             if not out.ovf:
                 break
             if level + 1 >= len(cap_schedule):
@@ -834,9 +1001,9 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                 # Spike mode starts at the overflowing row, from the
                 # frontier the rows before it left.
                 n_pre = out.rows_done - 1
-                lo, count = out.pre_lo, out.pre_count
                 spiked = _spike_rows(
-                    eng, base + n_pre, lo, count, caps=sp_caps,
+                    eng, base + n_pre, out.pre_lo, out.pre_hi,
+                    out.pre_count, caps=sp_caps,
                     dropback=min(SPIKE_DROPBACK, cap_schedule[-1]),
                     cancel=cancel, snapshots=snapshots)
                 spike_top = sp_caps[-1]
@@ -845,9 +1012,9 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             level += 1
             cap = cap_schedule[level]
             max_cap_used = max(max_cap_used, cap)
-            lo = _resize(lo, cap)
+            lo, hi = _resize(lo, hi, cap)
         if spiked is not None:
-            (s_lo, s_count, next_r, dead_h, ovf_h, cancelled,
+            (s_lo, s_hi, s_count, next_r, dead_h, ovf_h, cancelled,
              top_used) = spiked
             max_cap_used = max(max_cap_used, top_used)
             if cancelled:
@@ -859,25 +1026,25 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             if dead_h:
                 return dead_verdict(next_r - 1)
             if next_r >= p.R:
-                lo, count = s_lo, s_count
+                count = s_count
                 break
             # Resume full-size chunks at the top chunk level; the shrink
             # below drops back once chunks run clean.
             level = len(cap_schedule) - 1
             cap = cap_schedule[level]
-            lo, count = _resize(s_lo, cap), s_count
+            (lo, hi), count = _resize(s_lo, s_hi, cap), s_count
             base = next_r
             continue
         if out.dead:
             return dead_verdict(base + out.rows_done - 1)
-        lo, count = out.lo, out.count
+        lo, hi, count = out.lo, out.hi, out.count
         base += n
         # The frontier is compacted to the front, so a shrunken frontier
         # drops back to a smaller level by slicing.
         while level > 0 and count * 4 <= cap_schedule[level - 1]:
             level -= 1
             cap = cap_schedule[level]
-            lo = lo[:cap]
+            lo, hi = _resize(lo, hi, cap)
 
     return {"valid?": True, "analyzer": ANALYZER, "backend": backend,
             "configs": [], "final-frontier-size": int(count),
@@ -885,11 +1052,10 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
 
 
 def _materialize(snapshots, eng: _Engine):
-    """Snapshots as the ``(base, bits[cap, 1], state[cap, 1], count)``
+    """Snapshots as the ``(base, bits[cap, nw], state[cap, 1], count)``
     numpy tuples the witness replay takes."""
     out = []
-    for base, lo, count in snapshots:
-        bits, state = _unpack_frontier_keys(lo, count, lo.shape[0], eng.b,
-                                            eng.nil_id)
+    for base, lo, hi, count in snapshots:
+        bits, state = eng.unpack(lo, hi, count)
         out.append((base, bits.cpu().numpy(), state.cpu().numpy(), count))
     return out

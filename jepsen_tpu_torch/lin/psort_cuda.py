@@ -1,12 +1,14 @@
 """ctypes binding of ``csrc/psort.cu``: the CUDA kernels behind
-:func:`jepsen_tpu_torch.lin.psort.dedup_keys` and
-:func:`jepsen_tpu_torch.lin.psort.compact_keys`.
+:func:`jepsen_tpu_torch.lin.psort.dedup_keys`,
+:func:`jepsen_tpu_torch.lin.psort.compact_keys` and their pair-key
+twins ``dedup_keys2`` and ``compact_keys2``.
 
 The functions here take CUDA tensors that the wrappers in
 :mod:`jepsen_tpu_torch.lin.psort` have checked, allocate the outputs and
 scratch, and launch on the current stream. They do not synchronise.
 Keys are raw int32 tensors read as ``uint32_t``
-(:mod:`jepsen_tpu_torch._u32`).
+(:mod:`jepsen_tpu_torch._u32`); the pair kernels sort ``uint64_t`` keys
+``hi << 32 | lo`` in an int64 scratch buffer.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ def _load():
         lib.psort_dedup_launch.restype = i
         lib.psort_compact_launch.argtypes = [p, i, i, i, p, p, p, p]
         lib.psort_compact_launch.restype = i
+        lib.psort_dedup2_launch.argtypes = [p, p, p, i, i, i, p, p, p, p,
+                                            p, p]
+        lib.psort_dedup2_launch.restype = i
+        lib.psort_compact2_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
+        lib.psort_compact2_launch.restype = i
         _lib = lib
     return _lib
 
@@ -77,3 +84,43 @@ def compact(keys: torch.Tensor, cap: int, n_pad: int):
             out.data_ptr(), count.data_ptr(), _stream(keys))
     _raise_on(rc, "psort compact_keys", n, n_pad, cap)
     return out, count
+
+
+def dedup2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
+           cap: int, n_pad: int):
+    """Launch the pair sort-dedup. Returns (hi int32[cap], lo int32[cap],
+    flags int32[2] = (count, overflow)) on the keys' device."""
+    lib = _load()
+    n = lo.numel()
+    dev = lo.device
+    work = torch.empty(n_pad, dtype=torch.int64, device=dev)
+    blocks = torch.empty(n_pad // 1024 + 1, dtype=torch.int32, device=dev)
+    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup2_launch(
+            hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n, n_pad, cap,
+            work.data_ptr(), blocks.data_ptr(), out_hi.data_ptr(),
+            out_lo.data_ptr(), flags.data_ptr(), _stream(lo))
+    _raise_on(rc, "psort dedup_keys2", n, n_pad, cap)
+    return out_hi, out_lo, flags
+
+
+def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
+    """Launch the pair compaction sort. Returns (hi int32[cap], lo
+    int32[cap], count int32[1]) on the keys' device."""
+    lib = _load()
+    n = lo.numel()
+    dev = lo.device
+    work = torch.empty(n_pad, dtype=torch.int64, device=dev)
+    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_compact2_launch(
+            hi.data_ptr(), lo.data_ptr(), n, n_pad, cap, work.data_ptr(),
+            out_hi.data_ptr(), out_lo.data_ptr(), count.data_ptr(),
+            _stream(lo))
+    _raise_on(rc, "psort compact_keys2", n, n_pad, cap)
+    return out_hi, out_lo, count

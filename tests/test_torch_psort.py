@@ -282,8 +282,9 @@ def test_fixpoint_plain_matches_the_unfused_chain(fixpoint_case):
     eng = tbfs._Engine(pt, torch.device("cpu"))
     eng.load_chunk(r, 1)
     for G, Mg in ((1, fc["M"]), (fc["M"] // 2, 2)):
-        ulo, ucnt, uovf = eng._closure_unfused(_t(lo), cnt, 0, CAP, G, Mg,
-                                               G * (W + 4) + 8)
+        ulo, uhi, ucnt, uovf = eng._closure_unfused(
+            _t(lo), None, cnt, 0, CAP, G, Mg, G * (W + 4) + 8)
+        assert uhi is None
         assert not uovf
         assert ucnt == rcnt
         assert np.array_equal(_np(ulo), rlo.astype(np.uint32))
@@ -308,13 +309,207 @@ def test_fixpoint_wrapper_gates():
     cols = torch.zeros((tfused.N_COL_ROWS, 8), dtype=torch.int32)
     sats = torch.zeros((2, 8), dtype=torch.int32)
     lo = torch.full((CAP,), -1, dtype=torch.int32)
-    before = tfused.LAUNCHES
+    before = dict(tfused.LAUNCHES)
     out = tfused.fixpoint(lo, None, 0, cols, sats, cap=CAP, b=3, it_max=4)
     assert tfused.LAUNCHES == before           # plain on the CPU
     assert bool(out[3]) and int(out[2]) == 0   # empty frontier converges
-    with pytest.raises(NotImplementedError):
-        tfused.fixpoint(lo, lo, 0, cols, sats, cap=CAP, b=3, it_max=4)
+    # Pair keys run the same loop; a malformed hi is refused.
+    out = tfused.fixpoint(lo, lo.clone(), 0, cols, sats, cap=CAP, b=3,
+                          it_max=4)
+    assert tfused.LAUNCHES == before
+    assert bool(out[3]) and torch.equal(out[1], lo)
+    with pytest.raises(ValueError, match="hi must be"):
+        tfused.fixpoint(lo, lo[:8], 0, cols, sats, cap=CAP, b=3, it_max=4)
     assert tfused.fits(1024, 8, 3) and not tfused.fits(1000, 8, 3)
     assert not tfused.fits(8, 8, 3) and not tfused.fits(1024, 8, 7)
     assert not tfused.fits(1 << 17, 32, 3)
     assert tfused.max_n() == tpsort.PSORT_MAX_N
+
+
+# --- pair keys ------------------------------------------------------------
+
+
+PAIR_SHAPES = [(1024, 256), (2048, 1000)]
+
+
+def _pair_inputs(n):
+    """Seeded (hi, lo, valid) dedup inputs: equal hi with different lo,
+    lo's bit 31 set as payload (it is a slot's key bit in the pair band,
+    not a flag), duplicates, (KEY_FILL, KEY_FILL) holes and mixed
+    validity; and the same keys all invalid."""
+    rng = np.random.default_rng(n)
+    hi = rng.integers(0, 4, n).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    lo[::3] |= np.uint32(1 << 31)
+    hi[:n // 4], lo[:n // 4] = hi[n // 4:n // 2], lo[n // 4:n // 2]
+    hole = rng.random(n) < 0.1
+    hi[hole], lo[hole] = FILL, FILL
+    return [(hi, lo, rng.random(n) < 0.7), (hi, lo, np.zeros(n, bool))]
+
+
+@pytest.fixture(scope="module")
+def jax_dedups2():
+    """Every pair input with the Pallas kernels' (interpret mode) and the
+    lax formulation's outputs: dedup_keys2, the lax two-key dedup, and
+    compact_keys2 of the same pairs with the invalid ones dropped."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT", "interpret")
+        for n, cap in PAIR_SHAPES:
+            for i, (hi, lo, valid) in enumerate(_pair_inputs(n)):
+                h, lw, v = (jnp.asarray(x) for x in (hi, lo, valid))
+                pk = jpsort.dedup_keys2(h, lw, v, cap)
+                lk = jbfs._dedup_keys2(h, lw, v, cap, use_psort=False)
+                dh = np.where(valid, hi, FILL).astype(np.uint32)
+                dl = np.where(valid, lo, FILL).astype(np.uint32)
+                ck = jpsort.compact_keys2(jnp.asarray(dh), jnp.asarray(dl),
+                                          cap)
+                out[(n, cap, i)] = ((hi, lo, valid, dh, dl),
+                                    [tuple(np.asarray(x) for x in r)
+                                     for r in (pk, lk, ck)])
+    return out
+
+
+@pytest.mark.parametrize("n,cap", PAIR_SHAPES)
+def test_dedup_keys2_plain_matches_pallas_and_lax(jax_dedups2, n, cap):
+    overflowed = False
+    for i in range(2):
+        (hi, lo, valid, _, _), refs = jax_dedups2[(n, cap, i)]
+        args = (_t(hi), _t(lo), torch.from_numpy(valid), cap)
+        plain = tpsort.dedup_keys2_plain(*args)
+        # The engine's twin past the kernels' gate is the lax formulation.
+        sort = tbfs._dedup_keys2_sort(*args)
+        for (th, tl, tc, to), (rh, rl, rc, ro) in ((plain, refs[0]),
+                                                   (plain, refs[1]),
+                                                   (sort, refs[1])):
+            assert np.array_equal(_np(th)[:rh.size], rh.astype(np.uint32))
+            assert np.array_equal(_np(tl)[:rl.size], rl.astype(np.uint32))
+            assert (_np(th)[rh.size:] == FILL).all()
+            assert (int(tc), bool(to)) == (int(rc), bool(ro))
+        overflowed |= bool(plain[3])
+        if i == 0:
+            # Survivors with lo's bit 31 set: payload, not the flag.
+            assert (_np(plain[1])[:int(plain[2])] >> 31).any()
+    assert overflowed
+
+
+@pytest.mark.parametrize("n,cap", PAIR_SHAPES)
+def test_compact_keys2_plain_matches_pallas(jax_dedups2, n, cap):
+    (_, _, _, dh, dl), (_, _, (rh, rl, rc)) = jax_dedups2[(n, cap, 0)]
+    th, tl, tc = tpsort.compact_keys2_plain(_t(dh), _t(dl), cap)
+    assert np.array_equal(_np(th), rh.astype(np.uint32))
+    assert np.array_equal(_np(tl), rl.astype(np.uint32))
+    assert int(tc) == int(rc)
+    before = dict(tpsort.LAUNCHES)
+    wrapped = tpsort.compact_keys2(_t(dh), _t(dl), cap)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, (th, tl, tc)))
+    assert tpsort.LAUNCHES == before            # plain on the CPU
+
+
+PAIR_CAP = 128
+
+
+@pytest.fixture(scope="module")
+def pair_fixpoint_case():
+    """A real row of ``tests/test_lin_psort_fused.py``'s pair-key history
+    ``(140, 40, 3)`` (window 31, 3 state bits): the first row whose
+    closure from the initial config converges at cap 128 with configs
+    that hold key bits in hi (slots 29, 30) and lo's bit 31 (slot 28).
+    The Pallas kernel's (interpret mode) fixpoints from it: converged,
+    at it_max=1, and from 128 random configs, which overflow."""
+    pj, pt = _packed_pair(140, 40, 3)
+    eng = tbfs._Engine(pt, torch.device("cpu"))
+    W, b = eng.W, eng.b
+    assert eng.pair and (W, b) == (31, 3)
+    it_max = W + 12
+    lo0, hi0 = eng.init_keys(PAIR_CAP)
+    eng.load_chunk(0, pt.R)
+    for r in range(pt.R):
+        flo, fhi, fl = tfused.fixpoint_flags_plain(
+            lo0, hi0, 1, eng.cols[r], eng.sats[r], cap=PAIR_CAP, b=b,
+            it_max=it_max)
+        conv, _, _, fc = fl.tolist()
+        if conv and (_np(fhi)[:fc] != 0).any() \
+                and (_np(flo)[:fc] >> 31).any():
+            break
+    else:
+        raise AssertionError("no row carries payload in both words")
+    rng = np.random.default_rng(11)
+    k = np.unique(rng.integers(0, 1 << (W + b - 1), 4 * PAIR_CAP,
+                               dtype=np.uint64)
+                  & ~np.uint64((1 << b) - 1) | np.uint64(eng.nil_id))
+    k = np.sort(rng.permutation(k)[:PAIR_CAP])
+    big = (k.astype(np.uint32), (k >> np.uint64(32)).astype(np.uint32))
+    cols, sats = _np(eng.cols[r]), _np(eng.sats[r])
+    exp_j = jbfs.expansion_tables(pj, b)
+    pure_j, _ = jbfs.reduction_bit_tables(pj, (W + 31) // 32)
+    exp_r = tuple(jnp.asarray(t[r]) for t in exp_j)
+    jcols, jsats = jbfs._fused_row_tables(
+        exp_r, jnp.asarray(np.asarray(pj.active)[r]),
+        jnp.asarray(np.asarray(pj.slot_v)[r]), jnp.asarray(pure_j[r]),
+        W=W, b=b, nil_id=eng.nil_id)
+    assert np.array_equal(np.asarray(jcols), cols)
+    assert np.array_equal(np.asarray(jsats), sats)
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT_FUSED", "interpret")
+        for name, (lo_, hi_), cnt, itm in (
+                ("converged", (_np(lo0), _np(hi0)), 1, it_max),
+                ("budget", (_np(lo0), _np(hi0)), 1, 1),
+                ("overflow", big, PAIR_CAP, it_max)):
+            flo, fhi, fc, conv, ovf = jfused.fixpoint(
+                jnp.asarray(lo_), jnp.asarray(hi_), jnp.int32(cnt), jcols,
+                jsats, cap=PAIR_CAP, b=b, it_max=itm)
+            runs[name] = (lo_, hi_, cnt, itm, np.asarray(flo),
+                          np.asarray(fhi), int(fc), bool(conv), bool(ovf))
+    return dict(pj=pj, eng=eng, r=r, cols=cols, sats=sats, runs=runs,
+                exp_r=exp_r, pure_j=pure_j)
+
+
+@pytest.mark.parametrize("run", ["converged", "budget", "overflow"])
+def test_fixpoint_pair_plain_matches_pallas(pair_fixpoint_case, run):
+    fc = pair_fixpoint_case
+    lo, hi, cnt, itm, rlo, rhi, rcnt, rconv, rovf = fc["runs"][run]
+    flo, fhi, c, conv, ovf = tfused.fixpoint_plain(
+        _t(lo), _t(hi), cnt, _t(fc["cols"]), _t(fc["sats"]), cap=PAIR_CAP,
+        b=fc["eng"].b, it_max=itm)
+    assert np.array_equal(_np(flo), rlo.astype(np.uint32))
+    assert np.array_equal(_np(fhi), rhi.astype(np.uint32))
+    assert (int(c), bool(conv), bool(ovf)) == (rcnt, rconv, rovf)
+    if run == "converged":
+        # Key bits past 31 live in hi; lo's bit 31 is slot 28's key bit.
+        assert rconv and (rhi[:rcnt] != 0).any() \
+            and (rlo[:rcnt] >> 31).any()
+    if run == "budget":
+        assert not rconv and not rovf
+    if run == "overflow":
+        assert rovf and rcnt > PAIR_CAP
+
+
+def test_fixpoint_pair_plain_matches_the_unfused_chains(pair_fixpoint_case):
+    """One pair fixpoint equals the port's unfused pair pass chain
+    (ungrouped, and grouped two columns at a time) and the JAX package's
+    unfused pair pass, iterated to convergence."""
+    fc = pair_fixpoint_case
+    eng, r, pj = fc["eng"], fc["r"], fc["pj"]
+    lo, hi, cnt, _, rlo, rhi, rcnt, _, _ = fc["runs"]["converged"]
+    eng.load_chunk(r, 1)
+    M, W, b = eng.M, eng.W, eng.b
+    for G, Mg in ((1, M), (M // 2, 2)):
+        ulo, uhi, ucnt, uovf = eng._closure_unfused(
+            _t(lo), _t(hi), cnt, 0, PAIR_CAP, G, Mg, G * (W + 4) + 8)
+        assert not uovf and ucnt == rcnt
+        assert np.array_equal(_np(ulo), rlo.astype(np.uint32))
+        assert np.array_equal(_np(uhi), rhi.astype(np.uint32))
+    jlo, jhi, jcnt = jnp.asarray(lo), jnp.asarray(hi), jnp.int32(cnt)
+    for _ in range(W + 12):
+        jlo, jhi, jcnt, changed, ovf = jbfs._closure_pass_keys_compact(
+            jlo, jhi, jcnt, jnp.asarray(pj.active[r]),
+            jnp.asarray(pj.slot_v[r]), jnp.asarray(fc["pure_j"][r]),
+            fc["exp_r"], cap=PAIR_CAP, W=W, b=b, nil_id=eng.nil_id,
+            step_fn=pj.kernel.step, use_psort=False, crash_dom=False)
+        if not bool(changed):
+            break
+    assert int(jcnt) == rcnt
+    assert np.array_equal(np.asarray(jlo), rlo.astype(np.uint32))
+    assert np.array_equal(np.asarray(jhi), rhi.astype(np.uint32))
