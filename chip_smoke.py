@@ -47,13 +47,34 @@ raises on a failure:
     (both placements), converged, at ``it_max=1`` and overflowing;
 12. the pair headline: a 5k-op, concurrency-30 CAS-register history
     (window 29, past one u32 key) through ``checker.linearizable``,
-    valid by ``gpu-bfs`` with every pair kernel launched, then a clean
-    device check and a timed one, as in phase 8;
+    valid by ``gpu-bfs`` with every pair kernel launched, then a timed
+    device check, as in phase 8;
 13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
 14. each pair kernel's time beside its plain version, one PyTorch call
-    and its bound, at the pair headline's most frequent shapes.
+    and its bound, at the pair headline's most frequent shapes;
+15. the dominance dedups of the crash-dom bands vs their plain versions
+    on the card, bit-exact: ``dedup_keys_dom`` and ``dedup_keys2_dom`` in
+    forced mode at 2 and 6 rounds and unforced, at padded sizes 2^10 ...
+    2^22, 2^24 and 2^25 (the host caps 262,144 and 524,288 x 33
+    candidates), on mixed, all-invalid and long-chain inputs and on
+    candidates expanded from the crash-dom headlines' own rows;
+16. the single-key crash-dom headline: a 5k-op partition-nemesis history
+    at config 5's pacing (window 25, crashed mutators) through
+    ``checker.linearizable(algorithm="gpu")``, valid by ``gpu-bfs`` with
+    ``dedup_keys_dom`` launched, then a clean device check and one timed
+    per kernel call;
+17. the pair-key crash-dom headline: the same at 20k ops (window 38,
+    two-word bitsets, rows in the host-row executor), valid by
+    ``gpu-bfs`` with ``dedup_keys2_dom`` launched, then a clean device
+    check;
+18. the host-row executor on the card: the window-34 partition history at
+    chunk cap 8 and host caps (64, 4096), valid with host rows run, and
+    corrupted, invalid on the same op and dead row as the CPU oracle with
+    final paths;
+19. each dominance dedup's time per call at its headline's most frequent
+    shape, beside its plain version's and its bound.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -818,7 +839,9 @@ REPLACES = {"dedup_keys": "jepsen_tpu/lin/psort.py:741",
             "fixpoint": "jepsen_tpu/lin/psort_fused.py:316",
             "dedup_keys2": "jepsen_tpu/lin/psort.py:306",
             "compact_keys2": "jepsen_tpu/lin/psort.py:726",
-            "fixpoint_pair": "jepsen_tpu/lin/psort_fused.py:316"}
+            "fixpoint_pair": "jepsen_tpu/lin/psort_fused.py:316",
+            "dedup_keys_dom": "jepsen_tpu/lin/psort.py:448",
+            "dedup_keys2_dom": "jepsen_tpu/lin/psort.py:616"}
 
 
 def kernel_entries(times, launches, errs, per_kernel, extra) -> list:
@@ -917,7 +940,9 @@ def pair_phases(dev) -> list:
     kernels = {"dedup_keys2": ("psort", "dedup_keys2"),
                "compact_keys2": ("psort", "compact_keys2"),
                "fixpoint_pair": ("psort_fused", "fixpoint_flags")}
-    r, launches, per_kernel = headline(dev, model, h, kernels, "pair")
+    # Its run through the entry point is its clean run, as in phase 8.
+    r, launches, per_kernel = headline(dev, model, h, kernels, "pair",
+                                       clean_check=False)
 
     # 13. a wide pair history (window > 32, two-word bitsets): a
     # counterexample against the CPU oracle
@@ -935,6 +960,446 @@ def pair_phases(dev) -> list:
              "compact_keys2": {"sizes": list(SORT_SIZES) + [1500]},
              "fixpoint_pair": {"tiers": fix_tiers}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
+
+
+# --- the crash-dom bands (phases 15-19) --------------------------------------
+
+# Partition-nemesis histories (BASELINE config 5's class) at config 5's
+# staggered pacing (seed 7, invoke bias 0.45, 30 processes, 5 nodes, as
+# bench.py's partitioned probe): 5k ops is the single-key crash-dom band
+# (window 25, 3 state bits, M 16), 20k ops the pair-key band with
+# two-word bitsets (window 38).
+DOM_SINGLE = dict(n_ops=5_000, seed=7, invoke_bias=0.45)
+DOM_PAIR = dict(n_ops=20_000, seed=7, invoke_bias=0.45)
+# The host-row executor's own test shape: the window-34 partition history
+# with the chunk cap forced to 8, so that rows run in the executor.
+HOSTROW = dict(n_ops=140, concurrency=40, seed=0, partition_every=60,
+               partition_len=20, max_crashes=10)
+HOSTROW_CAPS = dict(cap_schedule=(8,), host_caps=(64, 4096))
+HOSTROW_CORRUPT_SEED = 3
+DOM_SIZES = tuple(1 << k for k in range(10, 23))
+# The host caps 262,144 and 524,288 at M = 32: 262,144 x 33 and
+# 524,288 x 33 candidates, padded 2^24 and 2^25 (the largest the band
+# gives the kernels).
+DOM_BIG = (262_144 * 33, 524_288 * 33)
+DOM_MODES = ((True, 2), (True, 6), (False, 1))     # (force, rounds)
+# Rows of a crash-dom headline whose frontiers give real candidates.
+DOM_ROWS = 1024
+# Key bits of the random inputs: state 0-2, crashed 3-18, read 19-24
+# (pairs: crashed 22-41 across both words, read 42-47, lo's bit 31 a
+# group bit).
+DOM_MASKS = {False: (sum(1 << j for j in range(3, 19)),
+                     sum(1 << j for j in range(19, 25))),
+             True: (sum(1 << j for j in range(22, 42)),
+                    sum(1 << j for j in range(42, 48)))}
+
+
+def dom_mask_words(pair: bool, cmask: int, rmask: int) -> tuple:
+    """The mask arguments of a dominance dedup: (cmask, rmask), or their
+    (hi, lo) halves for pairs."""
+    if not pair:
+        return cmask, rmask
+    return cmask >> 32, cmask & FILL, rmask >> 32, rmask & FILL
+
+
+def dom_random_keys(rng, n: int, pair: bool):
+    """Seeded (label, key u64, valid, cap) cases: mixed keys with
+    duplicates past cap, every key invalid, and one group of long
+    dominance chains."""
+    import numpy as np
+
+    cmask, rmask = DOM_MASKS[pair]
+    top = 52 if pair else 28
+    key = rng.integers(0, 1 << top, n, dtype=np.uint64)
+    dom_bits = np.uint64(cmask | rmask)
+    grp = np.uint64(5 | (1 << 31) | (3 << 48)) if pair \
+        else np.uint64(5 | (3 << 25))
+    mixed = key.copy()
+    g = rng.random(n) < 0.4
+    mixed[g] = (mixed[g] & dom_bits) | grp
+    mixed[:n // 10] = mixed[n // 10:2 * (n // 10)]
+    chain = np.full(n, grp) | (key & np.uint64(rmask))
+    for b in range(top):
+        if (cmask >> b) & 1:
+            chain |= (rng.random(n) < 0.8).astype(np.uint64) << np.uint64(b)
+    chain[:n // 20] = chain[n // 20:2 * (n // 20)]
+    return [("mixed", mixed, rng.random(n) < 0.85, max(n // 4, 1)),
+            ("all-invalid", mixed, np.zeros(n, bool), n),
+            ("chain", chain, rng.random(n) < 0.95, n)]
+
+
+def dom_words(dev, pair: bool, key, valid, cmask: int, rmask: int):
+    """Device (group, word) arrays of u64 keys, as the engine splits its
+    candidates (``bfs._dom_split``)."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import bfs
+
+    v = torch.from_numpy(np.ascontiguousarray(valid)).to(dev)
+    lo = _u32.bitmap_from_numpy(key.astype(np.uint32), dev)
+    if not pair:
+        return bfs._dom_split(lo, v, cmask, rmask)
+    hi = _u32.bitmap_from_numpy((key >> np.uint64(32)).astype(np.uint32), dev)
+    return bfs._dom_split2(hi, lo, v, *dom_mask_words(True, cmask, rmask))
+
+
+def dom_run(pair: bool, words, masks, cap: int, force: bool, rounds: int,
+            plain: bool = False):
+    """One dominance dedup (its plain version when ``plain``)."""
+    from jepsen_tpu_torch.lin import psort
+
+    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+    if plain:
+        return getattr(psort, name + "_plain")(*words, *masks, cap,
+                                               force=force, iters=rounds)
+    return getattr(psort, name)(*words, *masks, cap, force=force,
+                                iters=rounds)
+
+
+def dom_predecessor_tests(run) -> tuple:
+    """``run()`` (a plain dominance dedup) with each prune round's sorted
+    (group, word) entries read on the way in. Returns (its result, the
+    predecessor tests per round: for each valid entry, its distance to
+    its group's first entry, at most the chain)."""
+    import torch
+
+    from jepsen_tpu_torch.lin import psort
+
+    prune, tests = psort._dom_prune, []
+
+    def spy(ga, gw, keys, invalid, chain):
+        idx = torch.arange(ga.numel(), device=ga.device)
+        start = torch.ones_like(invalid)
+        start[1:] = ga[1:] != ga[:-1]
+        gfirst = torch.cummax(torch.where(start, idx, 0), 0)[0]
+        dist = (idx - gfirst).clamp(max=chain)
+        tests.append(int(dist[~invalid].sum()))
+        return prune(ga, gw, keys, invalid, chain)
+
+    psort._dom_prune = spy
+    try:
+        return run(), tests
+    finally:
+        psort._dom_prune = prune
+
+
+def dom_check(tag: str, pair: bool, words, masks, cap: int) -> int:
+    """Kernel vs plain in every mode on one input; raises on a difference.
+    Returns the max word error."""
+    import torch
+
+    err = 0
+    flags = []
+    for force, rounds in DOM_MODES:
+        kern = dom_run(pair, words, masks, cap, force, rounds)
+        plain = dom_run(pair, words, masks, cap, force, rounds, plain=True)
+        torch.cuda.synchronize()
+        same, e = same_outputs(kern, plain)
+        err = max(err, e)
+        if not same:
+            raise AssertionError(f"{tag}: kernel != plain (force={force}, "
+                                 f"rounds={rounds}), error {e}")
+        flags.append(f"{int(kern[-2])}{'+' if bool(kern[-1]) else ''}")
+    log(f"{tag} cap={cap} bit_exact=True counts (forced 2, forced 6, "
+        f"unforced; + = overflow) {' '.join(flags)}")
+    return err
+
+
+def dom_fronts(eng, rows: int):
+    """Entry frontiers (row, lo, hi, count) of the first ``rows`` rows of a
+    crash-dom history through the engine's in-chunk row loop, up to the
+    first row that overflows it."""
+    from jepsen_tpu_torch.lin import bfs
+
+    lo, hi = eng.init_keys(bfs.TIER_MARGIN * bfs.CHUNK_TIER_CAP)
+    count = 1
+    out = []
+    for r in range(min(rows, eng.p.R)):
+        base = r - r % bfs.CHUNK
+        eng.load_chunk(base, bfs.CHUNK)
+        out.append((r, lo, hi, count))
+        lo, hi, count, dead, ovf = eng.run_row(r - base, lo, hi, count, True)
+        if dead or ovf:
+            break
+    return out
+
+
+def dom_candidates(eng, front, tier: int):
+    """The first closure pass's candidates of a recorded row at ``tier``:
+    (key u64 numpy, valid numpy, cmask, rmask) in key space."""
+    import numpy as np
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import bfs
+
+    r, lo, hi, count = front
+    r0 = r - r % bfs.CHUNK
+    eng.load_chunk(r0, bfs.CHUNK)
+    tbl = eng.row_tables(r - r0)
+    cl, ch, rl, rh = eng.row_dom(r - r0)
+    lo, hi = bfs._resize(lo, hi, tier)
+    cand, cand_hi, valid = bfs._expand_keys_compact(
+        lo, hi, count, tbl, cap=tier, b=eng.b, nil_id=eng.nil_id,
+        step_fn=eng.step_fn)
+    key = _u32.bitmap_to_numpy(cand).astype(np.uint64)
+    if cand_hi is not None:
+        key |= _u32.bitmap_to_numpy(cand_hi).astype(np.uint64) << \
+            np.uint64(32)
+    return key, valid.cpu().numpy(), (ch << 32) | cl, (rh << 32) | rl
+
+
+def check_dom_kernels(dev, engines) -> dict:
+    """Phase 15: both dominance dedups vs their plain versions in every
+    mode, at every padded size 2^10 ... 2^22, 2^24 and 2^25, on random
+    inputs,
+    and on real candidates of each crash-dom headline (``engines``: pair
+    flag -> (engine, recorded frontiers)). Returns {name: max word
+    error}."""
+    import numpy as np
+
+    from jepsen_tpu_torch.lin import bfs
+
+    errs = {}
+    for pair in (False, True):
+        name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+        rng = np.random.default_rng(91 if pair else 90)
+        err = 0
+        for n in DOM_SIZES + DOM_BIG:
+            for label, key, valid, cap in dom_random_keys(rng, n, pair):
+                cmask, rmask = DOM_MASKS[pair]
+                words = dom_words(dev, pair, key, valid, cmask, rmask)
+                err = max(err, dom_check(
+                    f"[{name}-vs-plain] n={n} {label}", pair, words,
+                    dom_mask_words(pair, cmask, rmask), cap))
+        eng, fronts = engines[pair]
+        for front in sorted(fronts, key=lambda f: -f[3])[:3]:
+            count = front[3]
+            tier = next(t for t in bfs.ROW_TIERS + (bfs.CHUNK_TIER_CAP,)
+                        if count * bfs.TIER_MARGIN <= t)
+            key, valid, cmask, rmask = dom_candidates(eng, front, tier)
+            words = dom_words(dev, pair, key, valid, cmask, rmask)
+            err = max(err, dom_check(
+                f"[{name}-vs-plain] headline row {front[0]} count {count} "
+                f"tier {tier} n={key.size}", pair, words,
+                dom_mask_words(pair, cmask, rmask), tier))
+        errs[name] = err
+    return errs
+
+
+def dom_bound(n: int, out_n: int, words: int, rounds_work, survivors: int):
+    """Least time for one dominance dedup of n entries of ``words`` u32
+    words each (group and word): the bytes (entries in, ``out_n`` full
+    keys of words/2 words out) over the memory rate, or the work this
+    input needs over the integer rate: an n log2 n sort, per round one
+    binary search and the predecessor tests it needs (``rounds_work``,
+    from :func:`dom_predecessor_tests`), and the sort of the survivors' full
+    keys."""
+    import math
+
+    nbytes = 4 * words * n + 2 * words * out_n + 8
+    w2 = words // 2
+    ops = n * math.log2(max(n, 2)) * OPS_PER_COMPARE * w2
+    for tests in rounds_work:
+        ops += (n * math.log2(max(n, 2)) + tests) * OPS_PER_COMPARE * w2
+    ops += survivors * math.log2(max(survivors, 2)) * OPS_PER_COMPARE * w2
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
+
+
+def dom_headline(dev, model, h, pair: bool, gated: bool):
+    """Phases 16 / 17: a crash-dom headline through
+    ``checker.linearizable(algorithm="gpu")`` with the launch counts set to
+    0 just before and read just after; then a clean device check, and
+    (``gated``) one more with each dominance dedup call timed behind the
+    spin gate. Returns (result, launches, summed kernel ms of the gated
+    check or None, clean device check seconds)."""
+    import torch
+
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.lin import bfs, prepare, psort
+
+    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+    tag = "pair-dom" if pair else "single-dom"
+    t0 = time.perf_counter()
+    p = prepare.prepare(model, h)
+    t_prep = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    r = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
+                                                                h)
+    t_e2e = time.perf_counter() - t0
+    launches = {k: v for k, v in psort.LAUNCHES.items() if v}
+    n = len(h) // 2
+    log(f"[{tag}-headline] ops={n} window={p.window} R={p.R} crashed="
+        f"{len(p.crashed_ops)} verdict={r['valid?']} analyzer="
+        f"{r.get('analyzer')} backend={r.get('backend')} max-cap="
+        f"{r.get('max-cap')} final-frontier-size="
+        f"{r.get('final-frontier-size')} launches={launches}")
+    log(f"[{tag}-headline] engine-stats={r.get('engine-stats')}")
+    log(f"[{tag}-headline] host-stats={r.get('host-stats')}")
+    log(f"[{tag}-headline] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s "
+        f"({n / t_e2e:.1f} ops/s)")
+    if r["valid?"] is not True or r.get("analyzer") != "gpu-bfs":
+        raise AssertionError(f"{tag} headline: {r}")
+    if launches.get(name, 0) <= 0:
+        raise AssertionError(f"the {tag} headline never launched {name}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rr = bfs.check_packed(p, device=dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    if rr["valid?"] is not True:
+        raise AssertionError(f"{tag} re-check said {rr['valid?']!r}")
+    log(f"[{tag}-headline] clean device check {t_dev:.3f}s "
+        f"({n / t_dev:.1f} ops/s)")
+    per_call = None
+    if gated:
+        timer = CallTimer(psort, name)
+        with timer:
+            t0 = time.perf_counter()
+            rt = bfs.check_packed(p, device=dev)
+            torch.cuda.synchronize()
+            t_gated = time.perf_counter() - t0
+        if rt["valid?"] is not True:
+            raise AssertionError(f"{tag} timed check said {rt['valid?']!r}")
+        per_call = timer.total_ms()
+        log(f"[{tag}-headline] gated device check {t_gated:.3f}s: {name} "
+            f"{per_call:.1f} ms over {len(timer.calls)} calls "
+            f"({timer.unheld()} ungated) = {per_call / (t_gated * 1e3):.1%}"
+            " of the check (CUDA events after a spin gate)")
+    return r, launches, per_call, t_dev
+
+
+def hostrow_phase(dev, model):
+    """Phase 18: the host-row executor on the card, clean and against the
+    CPU oracle on a counterexample."""
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.lin import prepare, synth
+
+    h = synth.generate_partitioned_register_history(**HOSTROW)
+    p = prepare.prepare(model, h)
+    t0 = time.perf_counter()
+    r = checker.linearizable(algorithm="gpu", device=dev,
+                             **HOSTROW_CAPS).check(None, model, h)
+    t_r = time.perf_counter() - t0
+    hs = r.get("host-stats") or {}
+    log(f"[host-rows] window={p.window} R={p.R} crashed="
+        f"{len(p.crashed_ops)} caps={HOSTROW_CAPS} verdict={r['valid?']} "
+        f"max-cap={r.get('max-cap')} host-stats={hs} ({t_r:.2f}s)")
+    if r["valid?"] is not True or hs.get("rows", 0) < 1:
+        raise AssertionError(f"host-row executor run: {r}")
+    hc = synth.corrupt_history(h, seed=HOSTROW_CORRUPT_SEED)
+    t0 = time.perf_counter()
+    rg = checker.linearizable(algorithm="gpu", device=dev,
+                              **HOSTROW_CAPS).check(None, model, hc)
+    t_g = time.perf_counter() - t0
+    rc = checker.linearizable(algorithm="cpu").check(None, model, hc)
+    log(f"[host-rows-counterexample] gpu={rg['valid?']} ({t_g:.2f}s, "
+        f"host-stats {rg.get('host-stats')}) cpu={rc['valid?']} dead-row "
+        f"gpu={rg.get('dead-row')} cpu={rc.get('dead-row')} op="
+        f"{rg.get('op')} final-paths={len(rg.get('final-paths', []))}")
+    if rg["valid?"] is not False or rc["valid?"] is not False:
+        raise AssertionError(f"corrupted: gpu {rg['valid?']!r} cpu "
+                             f"{rc['valid?']!r}")
+    if rg.get("op") != rc.get("op") or rg.get("dead-row") != \
+            rc.get("dead-row"):
+        raise AssertionError(f"gpu {rg.get('op')} at {rg.get('dead-row')}, "
+                             f"cpu {rc.get('op')} at {rc.get('dead-row')}")
+    if not rg.get("final-paths") or not (rg.get("host-stats") or {}).get(
+            "rows"):
+        raise AssertionError("the counterexample ran no host row or has no "
+                             "final paths")
+
+
+def dom_times(eng, fronts, stats, pair: bool):
+    """Phase 19: a dominance dedup's time per call at its headline's most
+    frequent in-chunk shape (the most frequent unfused tier, real
+    candidates, 2 rounds), its plain version's, and its bound."""
+    from jepsen_tpu_torch.lin import bfs, psort
+
+    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+    unfused = dict(stats.get("unfused_tiers", {}))
+    tier = max(unfused, key=unfused.get)
+    front = max((f for f in fronts if f[3] * bfs.TIER_MARGIN <= tier),
+                key=lambda f: (f[3], f[0]))
+    key, valid, cmask, rmask = dom_candidates(eng, front, tier)
+    words = dom_words(eng.dev, pair, key, valid, cmask, rmask)
+    masks = dom_mask_words(pair, cmask, rmask)
+    rounds = bfs.DOM_ITERS_CHUNK
+    out, work = dom_predecessor_tests(
+        lambda: dom_run(pair, words, masks, tier, True, rounds, plain=True))
+    ms = time_chunk(lambda: dom_run(pair, words, masks, tier, True, rounds),
+                    50)
+    plain = time_chunk(lambda: dom_run(pair, words, masks, tier, True,
+                                       rounds, plain=True), 5)
+    n = key.size
+    bound, by = dom_bound(n, tier, 4 if pair else 2, work, int(out[-2]))
+    shape = {"n": n, "n_pad": psort.pad_size(n), "cap": tier,
+             "rounds": rounds, "M": eng.M,
+             "predecessor_tests": work}
+    log(f"[dom-time] {name} tier={tier} ({unfused[tier]} passes at this "
+        f"tier) row={front[0]} count={front[3]} n={n} (pad "
+        f"{psort.pad_size(n)}) survivors={int(out[-2])} predecessor tests "
+        f"per round {work}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bound:.6f} ms ({by}); no PyTorch call computes it")
+    return ms, plain, bound, by, shape
+
+
+def crashdom_phases(dev) -> list:
+    """Phases 15-19, the crash-dom bands. Returns the kernels line's
+    entries of the two dominance dedups."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import bfs, prepare, synth
+
+    model = m.cas_register()
+    hists, engines = {}, {}
+    for pair, kw in ((False, DOM_SINGLE), (True, DOM_PAIR)):
+        t0 = time.perf_counter()
+        h = synth.generate_partitioned_register_history(**kw)
+        p = prepare.prepare(model, h)
+        eng = bfs._Engine(p, dev)
+        fronts = dom_fronts(eng, DOM_ROWS)
+        log(f"[{'pair' if pair else 'single'}-dom] ops={kw['n_ops']} window="
+            f"{p.window} R={p.R} crashed={len(p.crashed_ops)} b={eng.b} "
+            f"M={eng.M} pair={eng.pair} crash_dom={eng.crash_dom}; "
+            f"frontiers of rows 0..{len(fronts) - 1} (counts up to "
+            f"{max(f[3] for f in fronts)}) in {time.perf_counter() - t0:.2f}s")
+        if eng.pair != pair or not eng.crash_dom or \
+                bfs.band_error(p) is not None:
+            raise AssertionError("a crash-dom headline left its band")
+        hists[pair], engines[pair] = h, (eng, fronts)
+
+    # 15. the dominance dedups vs their plain versions
+    errs = check_dom_kernels(dev, engines)
+    entries = []
+    results = {}
+    # 16, 17. the headlines through the user's entry point; the pair
+    # headline's per-call timing is left to phase 19 (a gated check would
+    # add a minute).
+    for pair in (False, True):
+        results[pair] = dom_headline(dev, model, hists[pair], pair,
+                                     gated=not pair)
+    # 18. the host-row executor
+    hostrow_phase(dev, model)
+    # 19. per-call times
+    for pair in (False, True):
+        name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+        r, launches, per_call, t_dev = results[pair]
+        eng, fronts = engines[pair]
+        ms, plain, bound, by, shape = dom_times(eng, fronts,
+                                                r["engine-stats"], pair)
+        entries.append({
+            "name": name, "route": "cuda", "source": SRC + "psort.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bit_exact": True, "shape": shape, "headline_ms": per_call,
+            "headline_check_s": t_dev,
+            "sizes": list(DOM_SIZES + DOM_BIG)})
+    return entries
 
 
 def main(device: str = "cuda") -> int:
@@ -1139,6 +1604,7 @@ def main(device: str = "cuda") -> int:
         "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
     kernels += sparse_phases(dev)
     kernels += pair_phases(dev)
+    kernels += crashdom_phases(dev)
     return finish(kernels, smi, kind)
 
 

@@ -14,7 +14,13 @@
 //   dedup_keys2   (_dedup2_call, _dedup2_body, _bitonic_sort2) and
 //   compact_keys2 (_compact2_call, _compact2_body): the same on (hi, lo)
 //                  u32 pairs in lexicographic order, the invalid flag in
-//                  hi's bit 31 and the dead entry (KEY_FILL, KEY_FILL).
+//                  hi's bit 31 and the dead entry (KEY_FILL, KEY_FILL);
+//   dedup_keys_dom  (_dedup_dom_call, body _dedup_dom_body) and
+//   dedup_keys2_dom (_dedup2_dom_call, body _dedup2_dom_body, sort
+//                  _bitonic_sort4): the crash-dom bands' dedup with
+//                  dominance pruning, on (group, word) pairs of single keys
+//                  (one uint64_t: a << 32 | w) or of pair keys (a 128-bit
+//                  key: group pair, then word pair). See "Dominance" below.
 //
 // A pair is packed as one uint64_t (hi << 32) | lo, so the lexicographic
 // order is one unsigned compare, the flag is bit 63 and the dead entry is
@@ -45,6 +51,28 @@
 // cluster sorting in distributed shared memory) or fuse dedup into the
 // last merge.
 //
+// Dominance. The TPU kernels, and the engine's forced lax path that the
+// crash-dom bands really run (jepsen_tpu/lin/bfs.py _dedup_keys_dom and
+// _dedup_keys2_dom with dom_force), sort the (group, word) entries, then
+// for `rounds` rounds drop each entry that is invalid, a duplicate of its
+// predecessor, or dominated (its group's first entry, or a predecessor at
+// distance 1..chain in its group, has a word that is a strict subset of
+// its own), and compact the survivors in order between rounds; last they
+// sort the survivors' recombined full keys. Here: one sort of the pairs
+// (the same tile and global-stage kernels on the wider key), then per
+// round one thread per entry finds its group's first entry by a binary
+// search for its group in the sorted array (the reference's segmented
+// scan) and walks back over its predecessors while they are in its group
+// (a predecessor outside the group ends the walk: groups are contiguous),
+// and a block-count / scan / scatter compacts the survivors, the rest
+// becoming the fill key. The full keys are scattered to their ranks with
+// the fill after them and sorted; the sort of the full keys and every
+// later round stop at the padded survivor count, read on the device, so
+// nothing synchronises with the host. Bound on this card: the initial sort
+// (log2(n_pad)^2 / 2 stages through L2 or device memory, 16 bytes a pair
+// key) at every size the engine gives (up to 2^25 candidates at the last
+// host cap); the chain walks are short where groups are small.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see jepsen_tpu_torch/_build.py).
 
@@ -62,6 +90,20 @@ constexpr int kTileBytes = 32768;
 constexpr int kSeg = kThreads;
 constexpr int kMinN = 1024;
 constexpr int kMaxN = 1 << 19;
+// The dominance dedups take every size the engine gives them.
+constexpr int kDomMaxN = 1 << 26;
+
+// A 128-bit key in lexicographic order: the dominance dedup of pair keys
+// sorts (group pair, word pair) entries as (hi, lo) = (group, word).
+struct U128 {
+  uint64_t hi, lo;
+};
+__device__ __forceinline__ bool operator>(const U128& a, const U128& b) {
+  return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo);
+}
+__device__ __forceinline__ bool operator==(const U128& a, const U128& b) {
+  return a.hi == b.hi && a.lo == b.lo;
+}
 
 template <typename K>
 struct KeyOf {
@@ -69,6 +111,22 @@ struct KeyOf {
   static constexpr K kInvalid = K(1) << (8 * sizeof(K) - 1);
   static constexpr int kTile = kTileBytes / static_cast<int>(sizeof(K));
 };
+template <>
+struct KeyOf<U128> {
+  static constexpr int kTile = kTileBytes / static_cast<int>(sizeof(U128));
+};
+
+// The padded prefix [0, P) a sort must order: every key when `total` is
+// null, else the next power of two at least *total (at least kMinN, at
+// most n_pad). Keys past *total are the fill key, so sorting the prefix
+// sorts the array.
+__device__ __forceinline__ int sort_prefix(const int32_t* total, int n_pad) {
+  if (total == nullptr) return n_pad;
+  const int t = *total;
+  int p = kMinN;
+  while (p < t && p < n_pad) p <<= 1;
+  return p < n_pad ? p : n_pad;
+}
 
 // Key g of the word arrays: lo alone for single keys, (hi, lo) for pairs.
 template <typename K>
@@ -147,24 +205,48 @@ __global__ void sort_tiles(const uint32_t* hi, const uint32_t* lo,
   for (int i = threadIdx.x; i < tile; i += blockDim.x) work[base + i] = s[i];
 }
 
-// One global stage: size k, stride j >= tile; one pair per thread.
+// One global stage: size k, stride j >= tile; one pair per thread. With
+// `total`, stages and pairs past the sorted prefix (sort_prefix) do
+// nothing.
 template <typename K>
-__global__ void merge_global(K* work, int n_pad, int k, int j) {
+__global__ void merge_global(K* work, int n_pad, int k, int j,
+                             const int32_t* total) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_pad / 2) return;
   const int i = pair_lo(p, j);
+  const int prefix = sort_prefix(total, n_pad);
+  if (k > prefix || i >= prefix) return;
   cmpx(work, i, j, (i & k) == 0);
 }
 
 // The strides below the tile of a size-k merge, in shared memory.
 template <typename K>
-__global__ void merge_tile(K* work, int tile, int k) {
+__global__ void merge_tile(K* work, int n_pad, int tile, int k,
+                           const int32_t* total) {
   __shared__ K s[KeyOf<K>::kTile];
   const int base = blockIdx.x * tile;
+  const int prefix = sort_prefix(total, n_pad);
+  if (k > prefix || base >= prefix) return;
   for (int i = threadIdx.x; i < tile; i += blockDim.x) s[i] = work[base + i];
   __syncthreads();
   tile_stages(s, tile, base, k, tile >> 1);
   for (int i = threadIdx.x; i < tile; i += blockDim.x) work[base + i] = s[i];
+}
+
+// The merges of a bitonic sort whose tiles are sorted in alternating
+// directions: sizes 2 * tile .. n_pad.
+template <typename K>
+void merge_all(K* work, int n_pad, int tile, const int32_t* total,
+               cudaStream_t st) {
+  const int tiles = n_pad / tile;
+  const int pair_blocks = (n_pad / 2 + kThreads - 1) / kThreads;
+  for (int k = 2 * tile; k <= n_pad; k <<= 1) {
+    for (int j = k >> 1; j >= tile; j >>= 1) {
+      merge_global<K><<<pair_blocks, kThreads, 0, st>>>(work, n_pad, k, j,
+                                                        total);
+    }
+    merge_tile<K><<<tiles, kThreads, 0, st>>>(work, n_pad, tile, k, total);
+  }
 }
 
 // Sorts work[0 .. n_pad) ascending, loading it from (hi,) lo (and valid).
@@ -173,15 +255,33 @@ void bitonic_sort(const uint32_t* hi, const uint32_t* lo,
                   const uint8_t* valid, int n, int n_pad, K* work,
                   cudaStream_t st) {
   const int tile = n_pad < KeyOf<K>::kTile ? n_pad : KeyOf<K>::kTile;
-  const int tiles = n_pad / tile;
-  sort_tiles<K><<<tiles, kThreads, 0, st>>>(hi, lo, valid, n, tile, work);
-  const int pair_blocks = (n_pad / 2 + kThreads - 1) / kThreads;
-  for (int k = 2 * tile; k <= n_pad; k <<= 1) {
-    for (int j = k >> 1; j >= tile; j >>= 1) {
-      merge_global<K><<<pair_blocks, kThreads, 0, st>>>(work, n_pad, k, j);
-    }
-    merge_tile<K><<<tiles, kThreads, 0, st>>>(work, tile, k);
-  }
+  sort_tiles<K><<<n_pad / tile, kThreads, 0, st>>>(hi, lo, valid, n, tile,
+                                                   work);
+  merge_all<K>(work, n_pad, tile, nullptr, st);
+}
+
+// Sorts the tiles of work in place, in alternating directions; with
+// `total`, only the tiles of the sorted prefix.
+template <typename K>
+__global__ void sort_tiles_work(K* work, int n_pad, int tile,
+                                const int32_t* total) {
+  __shared__ K s[KeyOf<K>::kTile];
+  const int base = blockIdx.x * tile;
+  if (base >= sort_prefix(total, n_pad)) return;
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) s[i] = work[base + i];
+  __syncthreads();
+  for (int k = 2; k <= tile; k <<= 1) tile_stages(s, tile, base, k, k >> 1);
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) work[base + i] = s[i];
+}
+
+// Sorts work[0 .. n_pad) in place (with `total`: its padded prefix).
+template <typename K>
+void bitonic_sort_work(K* work, int n_pad, const int32_t* total,
+                       cudaStream_t st) {
+  const int tile = n_pad < KeyOf<K>::kTile ? n_pad : KeyOf<K>::kTile;
+  sort_tiles_work<K><<<n_pad / tile, kThreads, 0, st>>>(work, n_pad, tile,
+                                                        total);
+  merge_all<K>(work, n_pad, tile, total, st);
 }
 
 // Survivor test on the sorted keys: valid and first of its run.
@@ -284,6 +384,187 @@ __global__ void compact_finish(const K* s, int n_pad, int cap,
   if (total >= 0) *count = total < cap ? total : cap;
 }
 
+// --- dominance dedups ---------------------------------------------------
+//
+// The entry type E is uint64_t for single keys (group a in the high word,
+// dominance word w in the low one) and U128 for pair keys (group pair in
+// hi, word pair in lo). Full keys F are uint32_t and uint64_t.
+
+template <typename E>
+struct Dom;
+template <>
+struct Dom<uint64_t> {
+  using G = uint32_t;  // group part, its bit 31 the invalid flag
+  using W = uint32_t;  // dominance word
+  using F = uint32_t;  // full key
+  __device__ static G group(uint64_t e) { return static_cast<G>(e >> 32); }
+  __device__ static W word(uint64_t e) { return static_cast<W>(e); }
+  __device__ static uint64_t fill() { return ~uint64_t(0); }
+  __device__ static bool invalid(uint64_t e) { return (e >> 63) != 0; }
+  __device__ static F full(uint64_t e, uint64_t cmask, uint64_t rmask) {
+    const uint32_t a = group(e), w = word(e);
+    return (a & 0x7FFFFFFFu) | (w & static_cast<uint32_t>(cmask)) |
+           (~w & static_cast<uint32_t>(rmask));
+  }
+};
+template <>
+struct Dom<U128> {
+  using G = uint64_t;
+  using W = uint64_t;
+  using F = uint64_t;
+  __device__ static G group(const U128& e) { return e.hi; }
+  __device__ static W word(const U128& e) { return e.lo; }
+  __device__ static U128 fill() { return U128{~uint64_t(0), ~uint64_t(0)}; }
+  __device__ static bool invalid(const U128& e) { return (e.hi >> 63) != 0; }
+  __device__ static F full(const U128& e, uint64_t cmask, uint64_t rmask) {
+    return (e.hi & 0x7FFFFFFFFFFFFFFFull) | (e.lo & cmask) | (~e.lo & rmask);
+  }
+};
+
+// The sort's input: entry i of the word arrays, (KEY_FILL group, zero word)
+// past n (the TPU kernels' padding).
+__global__ void dom_load1(const uint32_t* a, const uint32_t* w, int n,
+                          int n_pad, uint64_t* e) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pad) return;
+  e[i] = i < n ? (static_cast<uint64_t>(a[i]) << 32) | w[i]
+               : static_cast<uint64_t>(0xFFFFFFFFu) << 32;
+}
+
+__global__ void dom_load2(const uint32_t* a_hi, const uint32_t* a_lo,
+                          const uint32_t* w_hi, const uint32_t* w_lo, int n,
+                          int n_pad, U128* e) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pad) return;
+  if (i < n) {
+    e[i] = U128{(static_cast<uint64_t>(a_hi[i]) << 32) | a_lo[i],
+                (static_cast<uint64_t>(w_hi[i]) << 32) | w_lo[i]};
+  } else {
+    e[i] = U128{~uint64_t(0), 0};
+  }
+}
+
+// One prune round over the sorted entries s (with `live`: entries past
+// *live are the fill): keep[i] = valid, not a duplicate of s[i - 1], and
+// not dominated by its group's first entry nor by a predecessor at
+// distance 1..chain in its group.
+template <typename E>
+__global__ void dom_prune(const E* s, int n_pad, int chain,
+                          const int32_t* live, uint8_t* keep) {
+  using D = Dom<E>;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pad) return;
+  const int lim = live == nullptr ? n_pad : *live;
+  const E v = s[i];
+  if (i >= lim || D::invalid(v) || (i > 0 && s[i - 1] == v)) {
+    keep[i] = 0;
+    return;
+  }
+  const typename D::G g = D::group(v);
+  const typename D::W w = D::word(v);
+  // The group's first index: the lower bound of g in s[0 .. i].
+  int lo = 0, hi = i;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (D::group(s[mid]) < g) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const typename D::W f = D::word(s[lo]);
+  bool dom = (f & ~w) == 0 && f != w;
+  for (int d = 1; d <= chain && !dom && i - d >= lo; ++d) {
+    const typename D::W x = D::word(s[i - d]);
+    dom = (x & ~w) == 0 && x != w;
+  }
+  keep[i] = dom ? 0 : 1;
+}
+
+// blocks[b] = kept entries among [b * kSeg, (b + 1) * kSeg).
+__global__ void flag_count(const uint8_t* keep, int32_t* blocks) {
+  const int i = blockIdx.x * kSeg + threadIdx.x;
+  const int c = __syncthreads_count(keep[i] != 0);
+  if (threadIdx.x == 0) blocks[blockIdx.x] = c;
+}
+
+// Order-preserving compaction: kept entries to their ranks in dst, the
+// fill entry at every index past the kept count.
+template <typename E>
+__global__ void dom_compact(const E* s, const uint8_t* keep,
+                            const int32_t* blocks, int n_blocks, E* dst) {
+  __shared__ int warp_sums[32];
+  const int i = blockIdx.x * kSeg + threadIdx.x;
+  const bool k = keep[i] != 0;
+  const int rank = blocks[blockIdx.x] +
+                   block_inclusive_scan(k ? 1 : 0, warp_sums) - (k ? 1 : 0);
+  if (k) dst[rank] = s[i];
+  if (i >= blocks[n_blocks]) dst[i] = Dom<E>::fill();
+}
+
+// The kept entries' full keys to their ranks, the fill key past them.
+template <typename E>
+__global__ void dom_full(const E* s, const uint8_t* keep,
+                         const int32_t* blocks, int n_blocks, uint64_t cmask,
+                         uint64_t rmask, typename Dom<E>::F* full) {
+  using F = typename Dom<E>::F;
+  __shared__ int warp_sums[32];
+  const int i = blockIdx.x * kSeg + threadIdx.x;
+  const bool k = keep[i] != 0;
+  const int rank = blocks[blockIdx.x] +
+                   block_inclusive_scan(k ? 1 : 0, warp_sums) - (k ? 1 : 0);
+  if (k) full[rank] = Dom<E>::full(s[i], cmask, rmask);
+  if (i >= blocks[n_blocks]) full[i] = ~F(0);
+}
+
+// out = full[0 .. cap) as (hi,) lo words.
+template <typename F>
+__global__ void dom_out(const F* full, int cap, uint32_t* out_hi,
+                        uint32_t* out_lo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < cap) store_key(out_hi, out_lo, i, full[i]);
+}
+
+bool bad_dom_sizes(int n, int n_pad, int cap, int chain, int rounds) {
+  return n < 1 || n_pad < kMinN || n_pad > kDomMaxN ||
+         (n_pad & (n_pad - 1)) || n > n_pad || cap < 1 || cap > n_pad ||
+         chain < 0 || rounds < 1;
+}
+
+// The prune rounds, the full keys and their sort, after the entries are
+// loaded into e0. e1 is the compaction's second buffer.
+template <typename E>
+int dom_finish(E* e0, E* e1, int n_pad, int cap, int chain, int rounds,
+               uint64_t cmask, uint64_t rmask, uint8_t* keep, int32_t* blocks,
+               typename Dom<E>::F* full, uint32_t* out_hi, uint32_t* out_lo,
+               int32_t* flags, cudaStream_t st) {
+  using F = typename Dom<E>::F;
+  const int n_blocks = n_pad / kSeg;
+  const int grid = (n_pad + kThreads - 1) / kThreads;
+  const int32_t* total = blocks + n_blocks;
+  bitonic_sort_work<E>(e0, n_pad, nullptr, st);
+  for (int r = 0; r < rounds; ++r) {
+    if (r > 0) {
+      dom_compact<E><<<n_blocks, kSeg, 0, st>>>(e0, keep, blocks, n_blocks,
+                                                e1);
+      E* t = e0;
+      e0 = e1;
+      e1 = t;
+    }
+    // After a compaction, the entries past the last round's count are fill.
+    dom_prune<E><<<grid, kThreads, 0, st>>>(e0, n_pad, chain,
+                                            r > 0 ? total : nullptr, keep);
+    flag_count<<<n_blocks, kSeg, 0, st>>>(keep, blocks);
+    dedup_scan<<<1, kThreads, 0, st>>>(blocks, n_blocks, cap, flags);
+  }
+  dom_full<E><<<n_blocks, kSeg, 0, st>>>(e0, keep, blocks, n_blocks, cmask,
+                                         rmask, full);
+  bitonic_sort_work<F>(full, n_pad, total, st);
+  dom_out<F><<<(cap + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      full, cap, out_hi, out_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_sizes(int n, int n_pad, int cap) {
   return n < 1 || n_pad < kMinN || n_pad > kMaxN || (n_pad & (n_pad - 1)) ||
          n > n_pad || cap < 1 || cap > n_pad;
@@ -328,6 +609,59 @@ int compact_launch(const void* hi, const void* lo, int n, int n_pad, int cap,
 }  // namespace
 
 extern "C" {
+
+// Single keys. Device pointers: a, w u32[n], e0, e1 u64[n_pad], keep
+// u8[n_pad], blocks i32[n_pad / 1024 + 1], full u32[n_pad], out u32[cap],
+// flags i32[2] = {min(total, cap), total > cap}. chain: the predecessor
+// distances 1..chain tested; rounds: prune-and-compact rounds.
+int psort_dedup_dom_launch(const void* a, const void* w, uint32_t cmask,
+                           uint32_t rmask, int n, int n_pad, int cap,
+                           int chain, int rounds, void* e0, void* e1,
+                           void* keep, void* blocks, void* full, void* out,
+                           void* flags, void* stream) {
+  if (bad_dom_sizes(n, n_pad, cap, chain, rounds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint64_t* e = static_cast<uint64_t*>(e0);
+  dom_load1<<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(w), n,
+      n_pad, e);
+  return dom_finish<uint64_t>(
+      e, static_cast<uint64_t*>(e1), n_pad, cap, chain, rounds, cmask, rmask,
+      static_cast<uint8_t*>(keep), static_cast<int32_t*>(blocks),
+      static_cast<uint32_t*>(full), nullptr, static_cast<uint32_t*>(out),
+      static_cast<int32_t*>(flags), st);
+}
+
+// Pair keys. Device pointers: a_hi, a_lo, w_hi, w_lo u32[n], e0, e1
+// 16-byte entries [n_pad], keep u8[n_pad], blocks i32[n_pad / 1024 + 1],
+// full u64[n_pad], out_hi, out_lo u32[cap], flags i32[2].
+int psort_dedup2_dom_launch(const void* a_hi, const void* a_lo,
+                            const void* w_hi, const void* w_lo,
+                            uint32_t cmask_hi, uint32_t cmask_lo,
+                            uint32_t rmask_hi, uint32_t rmask_lo, int n,
+                            int n_pad, int cap, int chain, int rounds,
+                            void* e0, void* e1, void* keep, void* blocks,
+                            void* full, void* out_hi, void* out_lo,
+                            void* flags, void* stream) {
+  if (bad_dom_sizes(n, n_pad, cap, chain, rounds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  U128* e = static_cast<U128*>(e0);
+  dom_load2<<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(a_hi), static_cast<const uint32_t*>(a_lo),
+      static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
+      n, n_pad, e);
+  const uint64_t cmask = (static_cast<uint64_t>(cmask_hi) << 32) | cmask_lo;
+  const uint64_t rmask = (static_cast<uint64_t>(rmask_hi) << 32) | rmask_lo;
+  return dom_finish<U128>(
+      e, static_cast<U128*>(e1), n_pad, cap, chain, rounds, cmask, rmask,
+      static_cast<uint8_t*>(keep), static_cast<int32_t*>(blocks),
+      static_cast<uint64_t*>(full), static_cast<uint32_t*>(out_hi),
+      static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(flags), st);
+}
 
 // Device pointers: key u32[n], valid u8[n] (torch bool), work u32[n_pad],
 // blocks i32[n_pad / 1024 + 1], out u32[cap], flags i32[2]. Returns the

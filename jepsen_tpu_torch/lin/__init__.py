@@ -8,8 +8,8 @@
   engine (windows <= 20), chunk by chunk through
   :mod:`jepsen_tpu_torch.lin.dense_cuda`'s kernel.
 - :mod:`jepsen_tpu_torch.lin.bfs`     — the sparse frontier engine for
-  wider windows (crash-free register histories on single u32 keys or
-  (hi, lo) u32 pairs),
+  wider windows (register histories, crash-free or with crashed ops, on
+  single u32 keys or (hi, lo) u32 pairs),
   through :mod:`jepsen_tpu_torch.lin.psort`'s and
   :mod:`jepsen_tpu_torch.lin.psort_fused`'s kernels.
 - :mod:`jepsen_tpu_torch.lin.witness` — counterexamples for device
@@ -39,7 +39,8 @@ def analysis(model, history, algorithm: str = "competition", device=None,
     reference), or ``"competition"`` (race both; the first definite
     verdict wins). ``device`` is where the device engine runs (default:
     the card; see :func:`jepsen_tpu_torch.resolve_device`)."""
-    known = {"witness", "cancel", "chunk", "cap_schedule", "explain"}
+    known = {"witness", "cancel", "chunk", "cap_schedule", "host_caps",
+             "explain"}
     if kw.keys() - known:
         raise TypeError(f"unknown analysis options {kw.keys() - known}")
     if algorithm not in ALGORITHMS:
@@ -85,7 +86,7 @@ def device_check_packed(packed: PackedHistory, cancel=None, device=None,
     honest unknown naming it (:func:`jepsen_tpu_torch.lin.bfs.band_error`)."""
     from jepsen_tpu_torch.lin import bfs, dense
 
-    known = {"chunk", "cap_schedule", "explain"}
+    known = {"chunk", "cap_schedule", "host_caps", "explain"}
     if kw.keys() - known:
         raise TypeError(f"unknown device-check options {kw.keys() - known}")
     if dense.plan(packed) is not None:

@@ -1,9 +1,10 @@
 """The sparse frontier engine for wide windows: the register bands.
 
 The port of the part of :mod:`jepsen_tpu.lin.bfs` that decides
-crash-free, read-value-match register histories (cas-register,
-register) past the dense engine's windows (<= 20): windows 21-57 with a
-few interned values, the cockroach-class concurrency.
+read-value-match register histories (cas-register, register) past the
+dense engine's windows (<= 20): windows 21-57 with a few interned values,
+the cockroach-class concurrency, crash-free or with crashed ops (the
+crash-dom bands: the partition-nemesis histories of BASELINE config 5).
 
 A config (linearized-slot bitset B, model state s) is the key
 ``B << b | s`` (state id NIL remapped to ``nil_id``). Where window + b
@@ -37,10 +38,22 @@ blocking fetch per row (count, converged, overflow, survivors of the
 filter) picks the next row's tier, where the reference switches tiers on
 the device.
 
+With crashed ops (the crash-dom bands) every closure pass dedups with
+dominance pruning (:func:`_dedup_keys_dom`, pairs :func:`_dedup_keys2_dom`:
+a config that consumed a superset of another's crashed ops and a subset
+of its reads, in the same group, is dropped), the closure is ungrouped
+and never fused, the row tiers stop at :data:`CHUNK_TIER_CAP`, and a row
+that outgrows them runs in the host-row executor (:func:`_host_rows`): one
+row at a time through :data:`HOST_ROW_CAPS`, escalating from the row's
+entry frontier, with the pass budget :func:`_host_it_max` (the source of
+``overflow: budget``).
+
 Left out, each an honest ``unknown`` naming it (:func:`band_error`):
-the crash-dom band (any crashed slot, at either key width) with its
-host-row executor, the generic packed band (mutex), the multiword
-formulation, supervision, checkpoint/resume and the incremental entry.
+the generic packed band (mutex), the multiword formulation. Not ported
+either: supervision, checkpoint/resume, the incremental entry, and the
+host-row executor's dispatch amortisations (episode scheduler, K-row
+waves) and fault rungs (per-pass and CPU-oracle rows), which change no
+verdict.
 """
 
 from __future__ import annotations
@@ -80,6 +93,17 @@ _M_BUCKETS = (4, 8, 16, 32)
 # Candidate bound of a grouped closure pass (tier * (1 + Mg)); the
 # reference's windowed-dominance bound, psort.DOM_WINDOW_MAX_N.
 _GROUP_BOUND = 1 << 18
+# The crash-dom bands: the in-chunk tier ceiling (rows that need more run
+# in the host-row executor), the candidate bound that keeps every in-chunk
+# closure ungrouped (tier * (1 + M) <= it for any window at these tiers),
+# and the host-row executor's capacity ladder.
+CHUNK_TIER_CAP = 65536
+CHUNK_CAND_MAX = 1 << 22
+HOST_ROW_CAPS = (4096, 16384, 65536, 262144, 524288)
+# Prune rounds of the crash-dom dedups: in-chunk and in the host-row
+# executor (whose rows are the frontier blowups).
+DOM_ITERS_CHUNK = 2
+DOM_ITERS_HOST = 6
 
 KEY_FILL = psort.KEY_FILL
 ANALYZER = "gpu-bfs"
@@ -140,6 +164,59 @@ def _dedup_keys2_sort(hi, lo, valid, cap):
     out_hi, out_lo = _u32.pair_split(out[:cap])
     return (out_hi, out_lo, torch.clamp(total, max=cap).to(torch.int32),
             total > cap)
+
+
+def _host_it_max(W: int) -> int:
+    """Closure pass budget per (row, capacity) in the host-row executor:
+    ungrouped convergence needs O(window) passes; past it the row is an
+    honest ``budget`` overflow."""
+    return 4 * W + 16
+
+
+def _dom_split(key, valid, cmask: int, rmask: int):
+    """A raw int32 key word as its dominance dedup's (group, word) pair
+    over the crashed (``cmask``) and read (``rmask``) key bits, u32
+    values: the group part is the other bits with the invalid flag in bit
+    31, the word the crashed bits as they are and the read bits
+    complemented, so that "crashed a subset and read a superset" is one
+    subset test."""
+    a = key & _u32.raw_word(~(cmask | rmask))
+    a = torch.where(valid, a, a | torch.iinfo(torch.int32).min)
+    w = (key & _u32.raw_word(cmask)) | (~key & _u32.raw_word(rmask))
+    return a, w
+
+
+def _dedup_keys_dom(key, valid, cap, cmask: int, rmask: int, *,
+                    dom_force: bool = True, dom_iters: int = DOM_ITERS_CHUNK):
+    """Single-key sort-dedup with dominance pruning over the row's crashed
+    and read key bits (:func:`_dom_split`):
+    :func:`jepsen_tpu_torch.lin.psort.dedup_keys_dom`, at any size.
+    Returns (keys[cap], count, overflow) as tensors."""
+    a, w = _dom_split(key, valid, cmask, rmask)
+    return psort.dedup_keys_dom(a, w, cmask, rmask, cap, force=dom_force,
+                                iters=dom_iters)
+
+
+def _dom_split2(hi, lo, valid, cmask_hi: int, cmask_lo: int, rmask_hi: int,
+                rmask_lo: int):
+    """Pair-key twin of :func:`_dom_split`: (a_hi, a_lo, w_hi, w_lo), the
+    invalid flag in a_hi's bit 31."""
+    a_hi, w_hi = _dom_split(hi, valid, cmask_hi, rmask_hi)
+    a_lo, w_lo = _dom_split(lo, torch.ones_like(valid), cmask_lo, rmask_lo)
+    return a_hi, a_lo, w_hi, w_lo
+
+
+def _dedup_keys2_dom(hi, lo, valid, cap, cmask_hi: int, cmask_lo: int,
+                     rmask_hi: int, rmask_lo: int, *, dom_force: bool = True,
+                     dom_iters: int = DOM_ITERS_CHUNK):
+    """Pair-key twin of :func:`_dedup_keys_dom` (the masks' halves as u32
+    values): :func:`jepsen_tpu_torch.lin.psort.dedup_keys2_dom`. Returns
+    (hi[cap], lo[cap], count, overflow) as tensors."""
+    words = _dom_split2(hi, lo, valid, cmask_hi, cmask_lo, rmask_hi,
+                        rmask_lo)
+    return psort.dedup_keys2_dom(*words, cmask_hi, cmask_lo, rmask_hi,
+                                 rmask_lo, cap, force=dom_force,
+                                 iters=dom_iters)
 
 
 def _key_bit_words(pos):
@@ -458,21 +535,35 @@ def _expand_keys_compact(lo_in, hi_in, count, tbl: RowTables, *, cap, b,
 
 
 def _closure_pass_keys_compact(lo_in, hi_in, count, tbl: RowTables, *,
-                               cap, b, nil_id, step_fn):
+                               cap, b, nil_id, step_fn, dom=None,
+                               dom_iters: int = DOM_ITERS_CHUNK):
     """ONE closure pass over packed keys with mutator-compacted expansion
-    columns (the reference's non-dominance branch, single u32 keys or
-    (hi, lo) pairs when ``hi_in`` is given): expand, sort-dedup, and test
-    the fixpoint against the pass INPUT. Returns (lo, hi or None, count,
+    columns (single u32 keys, or (hi, lo) pairs when ``hi_in`` is given):
+    expand, sort-dedup, and test the fixpoint against the pass INPUT.
+    ``dom`` (crash-dom bands) is the row's (crash_lo, crash_hi, read_lo,
+    read_hi) key masks: the dedup then prunes dominated configs in the
+    forced mode with ``dom_iters`` rounds, as every call site of the
+    reference's crash-dom band does. Returns (lo, hi or None, count,
     changed, overflow) as tensors."""
     cand, cand_hi, valid = _expand_keys_compact(
         lo_in, hi_in, count, tbl, cap=cap, b=b, nil_id=nil_id,
         step_fn=step_fn)
     if hi_in is not None:
-        h2, l2, n2, o2 = _dedup_keys2(cand_hi, cand, valid, cap)
+        if dom is not None:
+            cl, ch, rl, rh = dom
+            h2, l2, n2, o2 = _dedup_keys2_dom(cand_hi, cand, valid, cap, ch,
+                                              cl, rh, rl,
+                                              dom_iters=dom_iters)
+        else:
+            h2, l2, n2, o2 = _dedup_keys2(cand_hi, cand, valid, cap)
         changed = torch.any(l2 != lo_in) | torch.any(h2 != hi_in) \
             | (n2 != count)
         return l2, h2, n2, changed, o2
-    l2, n2, o2 = _dedup_keys(cand, valid, cap)
+    if dom is not None:
+        l2, n2, o2 = _dedup_keys_dom(cand, valid, cap, dom[0], dom[2],
+                                     dom_iters=dom_iters)
+    else:
+        l2, n2, o2 = _dedup_keys(cand, valid, cap)
     changed = torch.any(l2 != lo_in) | (n2 != count)
     return l2, None, n2, changed, o2
 
@@ -653,8 +744,6 @@ def band_error(p: PackedHistory) -> str | None:
                 "yet ported")
     if not rvm or b > 6:
         return f"generic packed band ({name}) not yet ported"
-    if np.asarray(p.crashed).any():
-        return "crash-dom band (crashed ops) not yet ported"
     return None
 
 
@@ -693,6 +782,11 @@ class _Engine:
         self.pure_h, _ = reduction_bit_tables(p, self.nw)
         self.exp_h = expansion_tables(p, self.b)
         self.M = int(self.exp_h[0].shape[-1])
+        # Crashed ops put the history in a crash-dom band: dominance
+        # dedups, in-chunk tiers capped at CHUNK_TIER_CAP, and the host-row
+        # executor past them.
+        self.crash_dom = bool(np.asarray(p.crashed).any())
+        self.max_tier = CHUNK_TIER_CAP if self.crash_dom else None
         self._chunk_key = None
         # Work counters: rows run per tier, fused rows, unfused closure
         # passes (per tier), return filters that dropped configs (one
@@ -701,6 +795,14 @@ class _Engine:
         self.stats = {"rows": 0, "tiers": {}, "fused_rows": 0,
                       "unfused_passes": 0, "unfused_tiers": {},
                       "compactions": 0, "retries": 0, "fetches": 0}
+        # The host-row executor's counters (the reference's per-row path):
+        # episodes entered, rows run, fixpoint runs (one per row and
+        # capacity), closure passes inside them, passes of runs thrown away
+        # by an escalation, and rows whose sticky-raised starting level
+        # held (hits) or escalated all the same (misses).
+        self.host_stats = {"episodes": 0, "rows": 0, "dispatches": 0,
+                           "passes": 0, "wasted_passes": 0,
+                           "sticky_hits": 0, "sticky_misses": 0}
 
     def init_keys(self, cap: int):
         """The initial frontier (empty bitset, the initial state) as
@@ -748,10 +850,18 @@ class _Engine:
             put(exp_jit, bool), put(exp_rv_lo), put(exp_rv_hi),
             put(sats[:, 0]), put(sats[:, 1]))
         self.ret = _chunk_slice(np.asarray(p.ret_slot), base, rows).tolist()
+        # The rows' (crash_lo, crash_hi, read_lo, read_hi) key masks.
+        self.dom = np.stack(sl[7:11], axis=1).tolist() if self.crash_dom \
+            else None
         self._chunk_key = (base, rows)
 
     def row_tables(self, r: int) -> RowTables:
         return RowTables(*(t[r] for t in self.rows))
+
+    def row_dom(self, r: int):
+        """Row r's dominance masks for the closure's dedup, or None outside
+        the crash-dom bands."""
+        return None if self.dom is None else tuple(self.dom[r])
 
     def row_at_tier(self, tier: int, r: int, lo, hi, count: int,
                     fused: bool):
@@ -762,7 +872,9 @@ class _Engine:
         cap = lo.shape[0]
         l_t, h_t = _resize(lo, hi, tier)
         M = self.M
-        Mg = max(1, _GROUP_BOUND // tier - 1)
+        # The crash-dom bands' bound keeps the closure ungrouped.
+        bound = CHUNK_CAND_MAX if self.crash_dom else _GROUP_BOUND
+        Mg = max(1, bound // tier - 1)
         G = -(-M // Mg) if Mg < M else 1
         Mg = min(Mg, M)
         # Convergence needs O(G * window) passes; exhaustion flags
@@ -772,7 +884,9 @@ class _Engine:
         st = self.stats
         st["rows"] += 1
         st["tiers"][tier] = st["tiers"].get(tier, 0) + 1
-        if fused and psort_fused.fits(tier, M, self.b):
+        # The dominance dedups have no fused fixpoint.
+        if fused and not self.crash_dom \
+                and psort_fused.fits(tier, M, self.b):
             l_t, h_t, flags = psort_fused.fixpoint_flags(
                 l_t, h_t, count, self.cols[r], self.sats[r], cap=tier,
                 b=self.b, it_max=it_max)
@@ -813,6 +927,7 @@ class _Engine:
         consecutive unchanged passes; one fetch per pass. Returns (lo, hi,
         count, overflow)."""
         tbl = self.row_tables(r)
+        dom = self.row_dom(r)
         groups = [tbl.columns(g * Mg, (g + 1) * Mg) for g in range(G)] \
             if G > 1 else [tbl]
         g = since = it = 0
@@ -820,7 +935,7 @@ class _Engine:
         while since < G and not ovf:
             l2, h2, n2, changed, o2 = _closure_pass_keys_compact(
                 lo, hi, count, groups[g], cap=tier, b=self.b,
-                nil_id=self.nil_id, step_fn=self.step_fn)
+                nil_id=self.nil_id, step_fn=self.step_fn, dom=dom)
             n2, changed, o2 = torch.stack(
                 (n2.to(torch.int32), changed.to(torch.int32),
                  o2.to(torch.int32))).tolist()
@@ -837,10 +952,51 @@ class _Engine:
             lo, hi, count = l2, h2, n2
         return lo, hi, count, ovf
 
+    def host_fixpoint(self, r: int, lo, hi, count: int, cap: int,
+                      it_max: int):
+        """The host-row executor's closure fixpoint for row r at ``cap``:
+        ungrouped passes with the forced dominance dedup at
+        :data:`DOM_ITERS_HOST` rounds until a pass changes nothing, a
+        dedup overflows, or ``it_max`` passes ran (one fetch per pass);
+        when converged, the return filter. Returns (lo, hi, converged,
+        dedup overflow, passes, count, peak), the count after the filter
+        and the peak the largest settled count of a pass (at least the
+        entry count)."""
+        tbl, dom = self.row_tables(r), self.row_dom(r)
+        it, changed, ovf, peak = 0, True, False, count
+        while changed and not ovf and it < it_max:
+            l2, h2, n2, ch, o2 = _closure_pass_keys_compact(
+                lo, hi, count, tbl, cap=cap, b=self.b, nil_id=self.nil_id,
+                step_fn=self.step_fn, dom=dom, dom_iters=DOM_ITERS_HOST)
+            n2, ch, o2 = torch.stack((n2.to(torch.int32),
+                                      ch.to(torch.int32),
+                                      o2.to(torch.int32))).tolist()
+            self.stats["fetches"] += 1
+            it += 1
+            changed, ovf, peak = bool(ch), ovf or bool(o2), max(peak, n2)
+            lo, hi, count = l2, h2, n2
+        conv = not changed and not ovf
+        if conv:
+            s = self.ret[r]
+            if hi is None:
+                lo, count, _ = _filter_pass_keys(lo, count, s, cap=cap,
+                                                 b=self.b)
+            else:
+                lo, hi, count, _ = _filter_pass_keys2(lo, hi, count, s,
+                                                      cap=cap, b=self.b)
+        return lo, hi, conv, ovf, it, count, peak
+
     def run_row(self, r: int, lo, hi, count: int, row_tiers: bool):
         cap = lo.shape[0]
-        tiers = (tuple(t for t in ROW_TIERS if t < cap) + (cap,)
+        # The crash-dom bands' tiers stop at max_tier, below the cap.
+        top = cap if self.max_tier is None else min(cap, self.max_tier)
+        tiers = (tuple(t for t in ROW_TIERS if t < top) + (top,)
                  if row_tiers else (cap,))
+        if tiers[-1] < cap and count > tiers[-1]:
+            # An entry frontier past the top tier cannot run in-chunk
+            # (cutting it to the tier would drop live configs): overflow,
+            # untouched, and the host-row executor takes the row.
+            return lo, hi, count, False, True
         # Spike mini-chunks (untiered) keep the unfused pass chain, as in
         # the reference.
         fused = row_tiers
@@ -918,9 +1074,84 @@ def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
     return lo, hi, count, r, False, False, False, top_used
 
 
+def _host_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
+               dropback, cancel, snapshots, min_rows: int = 2):
+    """The host-row executor of the crash-dom bands (the reference's
+    per-row path): rows one at a time from ``r0``, each a closure
+    fixpoint with the return filter (:meth:`_Engine.host_fixpoint`) at a
+    capacity of ``caps``, from the smallest holding TIER_MARGIN x the entry
+    count or the sticky level, whichever is higher; an overflow or an
+    exhausted pass budget re-runs the row from its entry frontier at the
+    next capacity. The sticky level follows the capacity the last row
+    needed and decays one level per row whose peak fits a lower one.
+    Stops at a death, a cancel, an overflow of the last capacity, the
+    history's end, or (after ``min_rows`` rows) a frontier of at most
+    ``dropback``. ``snapshots`` receives each row's entry frontier.
+    Returns (lo, hi, count, next_row, dead, overflow, cancelled,
+    top_cap_used), ``overflow`` False or the reason: "capacity" or
+    "budget"."""
+    p = eng.p
+    st = eng.host_stats
+    it_max = _host_it_max(eng.W)
+    top_used = caps[0]
+
+    def lvl_for(c):
+        return next((i for i, cc in enumerate(caps) if c * TIER_MARGIN <= cc),
+                    len(caps) - 1)
+
+    if count > caps[-1]:
+        return lo, hi, count, r0, False, "capacity", False, top_used
+    sticky_lvl = lvl_for(count)
+    r = r0
+    while r < p.R:
+        if cancel is not None and cancel.is_set():
+            return lo, hi, count, r, False, False, True, top_used
+        natural = lvl_for(count)
+        lvl = max(natural, sticky_lvl)
+        raised = lvl > natural
+        if snapshots is not None:
+            snapshots[:] = [(r, lo, hi, count)]
+        eng.load_chunk(r, 1)
+        st["rows"] += 1
+        escalated = False
+        peak_row = count
+        while True:
+            cap = caps[lvl]
+            top_used = max(top_used, cap)
+            l_c, h_c = _resize(lo, hi, cap)
+            l2, h2, conv, ov, it, cnt, pk = eng.host_fixpoint(
+                0, l_c, h_c, count, cap, it_max)
+            st["dispatches"] += 1
+            st["passes"] += it
+            if conv:
+                peak_row = max(peak_row, pk)
+                break
+            st["wasted_passes"] += it
+            if lvl + 1 >= len(caps):
+                # Hand back the row's entry frontier, with the reason.
+                return (lo, hi, count, r, False,
+                        "capacity" if ov else "budget", False, top_used)
+            lvl += 1
+            escalated = True
+        if raised:
+            st["sticky_misses" if escalated else "sticky_hits"] += 1
+        if lvl > sticky_lvl:
+            sticky_lvl = lvl
+        elif lvl_for(peak_row) < sticky_lvl:
+            sticky_lvl -= 1
+        lo, hi, count = l2, h2, cnt
+        r += 1
+        if count == 0:
+            return lo, hi, 0, r, True, False, False, top_used
+        if r - r0 >= min_rows and count <= dropback:
+            break
+    return lo, hi, count, r, False, False, False, top_used
+
+
 def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                  cancel=None, explain: bool = False,
-                 spike_caps=SPIKE_CAP_SCHEDULE, device=None) -> dict:
+                 spike_caps=SPIKE_CAP_SCHEDULE, host_caps=HOST_ROW_CAPS,
+                 device=None) -> dict:
     """Decide linearizability of a packed history with the sparse engine.
 
     Chunks of ``chunk`` rows; capacity adapts per chunk: an overflow
@@ -928,27 +1159,37 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
     ``cap_schedule`` (default :data:`PACKED_CAP_SCHEDULE`, its top level
     alone on the card), the frontier past the last level goes to spike
     mode at ``spike_caps``, and a clean chunk whose frontier shrank drops
-    back a level. ``cancel`` (threading.Event) stops between chunks.
+    back a level. In the crash-dom bands the default schedule is one
+    level of TIER_MARGIN x :data:`CHUNK_TIER_CAP`, and a row past the
+    in-chunk tiers goes to the host-row executor (:func:`_host_rows`) at
+    ``host_caps`` instead of spike mode; the result then carries its
+    ``host-stats``. ``cancel`` (threading.Event) stops between chunks.
     ``explain=True`` keeps the chunk-entry frontier and, on an invalid
     verdict, replays the failing tail on the CPU oracle for configs and
     final paths (:mod:`jepsen_tpu_torch.lin.witness`). ``device`` is where
     the search runs (see :func:`jepsen_tpu_torch.resolve_device`).
 
     Returns the reference's result shape: ``valid?``, ``dead-row``,
-    ``op``, ``final-frontier-size``, ``max-cap``, ``overflow``."""
+    ``op``, ``final-frontier-size``, ``max-cap``, ``overflow`` (with an
+    unknown: ``capacity``, or ``budget`` from the host-row executor)."""
     device = resolve_device(device)
     err = band_error(p)
     if err is not None:
         return {"valid?": "unknown", "analyzer": ANALYZER, "error": err}
     if p.R == 0:
         return {"valid?": True, "analyzer": ANALYZER, "configs": []}
+    eng = _Engine(p, device)
     if cap_schedule is None:
         # Row tiers make small frontiers cheap at any cap, so on the card
         # the band runs top-cap from the start; the CPU keeps a small
         # first level.
         cap_schedule = PACKED_CAP_SCHEDULE[-1:] if device.type == "cuda" \
             else PACKED_CAP_SCHEDULE
-    eng = _Engine(p, device)
+    if eng.max_tier is not None and tuple(cap_schedule) in (
+            PACKED_CAP_SCHEDULE, PACKED_CAP_SCHEDULE[-1:]):
+        # Counts never pass the tier cap in-chunk, so the chunk cap needs
+        # only the selection margin over it.
+        cap_schedule = (TIER_MARGIN * eng.max_tier,)
     backend = "cuda" if device.type == "cuda" else "plain"
 
     level = 0
@@ -958,9 +1199,14 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
     max_cap_used = cap
     snapshots: list | None = [] if explain else None
 
+    def with_stats(out: dict) -> dict:
+        if eng.host_stats["episodes"]:
+            out["host-stats"] = dict(eng.host_stats)
+        return out
+
     def unknown(**kw) -> dict:
-        return {"valid?": "unknown", "analyzer": ANALYZER,
-                "backend": backend, **kw}
+        return with_stats({"valid?": "unknown", "analyzer": ANALYZER,
+                           "backend": backend, **kw})
 
     def dead_verdict(dead_row: int) -> dict:
         ret = p.ops[int(p.ret_op[dead_row])]
@@ -975,7 +1221,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
 
             out.update(witness.tail_replay_sparse(
                 p, _materialize(snapshots, eng), dead_row, cancel=cancel))
-        return out
+        return with_stats(out)
 
     base = 0
     while base < p.R:
@@ -991,16 +1237,35 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             out = eng.chunk(base, n, chunk, lo, hi, count)
             if not out.ovf:
                 break
-            if level + 1 >= len(cap_schedule):
+            # With capped tiers a larger chunk cap whose tiers stop at the
+            # same top cannot help: past the chunked engine at once.
+            no_grow = eng.max_tier is not None \
+                and level + 1 < len(cap_schedule) \
+                and min(cap_schedule[level + 1], eng.max_tier) \
+                == min(cap_schedule[level], eng.max_tier)
+            if level + 1 >= len(cap_schedule) or no_grow:
+                # The overflowing row starts spike mode or the host-row
+                # executor, from the frontier the rows before it left.
+                n_pre = out.rows_done - 1
+                if eng.crash_dom:
+                    # The hand-back must fit the top chunk cap as well as
+                    # the tiers: the resume below keeps only cap keys.
+                    eng.host_stats["episodes"] += 1
+                    spiked = _host_rows(
+                        eng, base + n_pre, out.pre_lo, out.pre_hi,
+                        out.pre_count, caps=host_caps,
+                        dropback=min(SPIKE_DROPBACK,
+                                     eng.max_tier // TIER_MARGIN,
+                                     cap_schedule[-1]),
+                        cancel=cancel, snapshots=snapshots)
+                    spike_top = host_caps[-1]
+                    break
                 sp_caps = tuple(sorted(c for c in spike_caps
                                        if c > cap_schedule[-1])) or None
                 if sp_caps is None:
                     return unknown(overflow="capacity",
                                    error=("frontier exceeded capacity "
                                           f"{cap_schedule[-1]}"))
-                # Spike mode starts at the overflowing row, from the
-                # frontier the rows before it left.
-                n_pre = out.rows_done - 1
                 spiked = _spike_rows(
                     eng, base + n_pre, out.pre_lo, out.pre_hi,
                     out.pre_count, caps=sp_caps,
@@ -1019,6 +1284,10 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             max_cap_used = max(max_cap_used, top_used)
             if cancelled:
                 return unknown(error="cancelled")
+            if ovf_h == "budget":
+                return unknown(overflow="budget",
+                               error=f"closure pass budget exceeded at "
+                                     f"capacity {spike_top}")
             if ovf_h:
                 return unknown(overflow="capacity",
                                error=f"frontier exceeded capacity "
@@ -1046,9 +1315,10 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             cap = cap_schedule[level]
             lo, hi = _resize(lo, hi, cap)
 
-    return {"valid?": True, "analyzer": ANALYZER, "backend": backend,
-            "configs": [], "final-frontier-size": int(count),
-            "max-cap": max_cap_used, "engine-stats": eng.stats}
+    return with_stats({"valid?": True, "analyzer": ANALYZER,
+                       "backend": backend, "configs": [],
+                       "final-frontier-size": int(count),
+                       "max-cap": max_cap_used, "engine-stats": eng.stats})
 
 
 def _materialize(snapshots, eng: _Engine):

@@ -14,6 +14,10 @@ single u32 keys and on (hi, lo) u32 pairs ordered as ``hi << 32 | lo``:
   invalid flag in hi's bit 31 (lo's bit 31 is payload), the dead entries
   (KEY_FILL, KEY_FILL) pairs. The argument order is the reference's:
   (hi, lo).
+- :func:`dedup_keys_dom`, :func:`dedup_keys2_dom` — sort-dedup with
+  dominance pruning for the crash-dom bands, on (group, dominance word)
+  pairs of single keys or of pair keys: the semantics twins of the sparse
+  engine's ``bfs._dedup_keys_dom`` and ``bfs._dedup_keys2_dom``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/psort.cu`` through :mod:`jepsen_tpu_torch.lin.psort_cuda`) or
@@ -38,16 +42,41 @@ KEY_FILL = 0xFFFFFFFF     # pad beyond count; sorts after any config
 KEY_FILL_RAW = -1         # KEY_FILL as the int32 that carries its bits
 _INVALID = 1 << 31
 
+# The dominance prune of the crash-dom dedups (the reference's values).
+# Unforced, each entry is tested against its group's representative and
+# the predecessors at the DOM_WINDOW distances while the padded size is at
+# most DOM_WINDOW_MAX_N; forced, against every predecessor of its group
+# at distances 1..DOM_CHAIN, and the prune and an order-preserving
+# compaction of the survivors run ``iters`` rounds (DOM_ITERS in the
+# reference's Pallas kernels; the engine passes 2 in-chunk and 6 in the
+# host-row executor).
+DOM_WINDOW = (1, 2)
+DOM_WINDOW_MAX_N = 1 << 18
+DOM_CHAIN = 128
+DOM_ITERS = 2
+# The dominance kernels take every size the engine gives them (the host
+# caps reach 524288 x (1 + M) candidates).
+DOM_MAX_N = 1 << 26
+
 # Kernel launches since import (or since a caller reset them): one per
 # launch of each CUDA kernel, none for the plain versions.
 LAUNCHES = {"dedup_keys": 0, "compact_keys": 0, "dedup_keys2": 0,
-            "compact_keys2": 0}
+            "compact_keys2": 0, "dedup_keys_dom": 0, "dedup_keys2_dom": 0}
 
 
 def pad_size(n: int) -> int:
     """The kernel size for an n-element dedup: next power of two, at
     least :data:`MIN_N`."""
     return max(MIN_N, 1 << (n - 1).bit_length())
+
+
+def dom_window(n: int, force: bool = False) -> tuple:
+    """The dominance window of an n-element dedup: :data:`DOM_WINDOW`
+    while the padded size is at most :data:`DOM_WINDOW_MAX_N` or when
+    ``force`` (which also runs the chain over 1..DOM_CHAIN), else empty."""
+    if force or pad_size(n) <= DOM_WINDOW_MAX_N:
+        return DOM_WINDOW
+    return ()
 
 
 def available(n: int) -> bool:
@@ -245,3 +274,216 @@ def compact_keys2_plain(hi: torch.Tensor, lo: torch.Tensor, cap: int):
     total = (k != _u32.PAIR_FILL).sum()
     out_hi, out_lo = _u32.pair_split(k[:cap])
     return out_hi, out_lo, torch.clamp(total, max=cap).to(torch.int32)
+
+
+# --- dominance dedups (the crash-dom bands) ---------------------------------
+
+
+def _dom_rounds(n: int, force: bool, iters: int) -> tuple[int, int]:
+    """(rounds, chain): prune rounds, and the predecessor distances
+    1..chain each entry is tested against besides its representative."""
+    if force:
+        return max(1, iters), DOM_CHAIN
+    window = dom_window(n, False)
+    # The window is a run of distances from 1, so one bound describes it.
+    assert window == tuple(range(1, len(window) + 1))
+    return 1, len(window)
+
+
+def _check_dom(words, cap: int, what: str) -> None:
+    _check(words[0], cap, what)
+    for t in words[1:]:
+        if t.dtype != torch.int32 or t.shape != words[0].shape \
+                or t.device != words[0].device:
+            raise ValueError(f"{what}: every word array must be raw int32 "
+                             "with the same shape and device")
+
+
+def _dom_kernel_args(words, what: str) -> None:
+    t = words[0]
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    if pad_size(t.numel()) > DOM_MAX_N:
+        raise ValueError(f"{what} kernel takes at most {DOM_MAX_N} keys "
+                         f"padded, got {t.numel()}")
+    if not all(x.is_contiguous() for x in words):
+        raise ValueError(f"{what} needs contiguous tensors")
+
+
+def dedup_keys_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
+                   cap: int, *, force: bool, iters: int = DOM_ITERS):
+    """Sort-dedup with dominance pruning over single keys. ``a`` raw
+    int32[n] is each key's group part (mutator bits and state, the invalid
+    flag in bit 31), ``w`` its dominance word (crashed bits as they are,
+    read bits complemented); ``cmask``/``rmask`` the u32 masks of the
+    row's crashed and read slots. Within a group (equal ``a``) an entry
+    whose word is a strict superset of another's is dominated. Sorted by
+    (a, w), an entry is dropped when it is invalid, a duplicate of its
+    predecessor, or dominated by its group's first entry or by a
+    predecessor within the window (``force``: the chain 1..DOM_CHAIN,
+    with ``iters`` prune-and-compact rounds). The survivors' full keys
+    ``(a & 0x7FFFFFFF) | (w & cmask) | (~w & rmask)`` are returned
+    ascending: (keys int32[cap] with KEY_FILL padding, count int32 =
+    min(total, cap), overflow bool = total > cap), on the keys' device.
+    The CUDA path does not synchronise with the host."""
+    _check_dom((a, w), cap, "dedup_keys_dom")
+    if a.device.type == "cpu":
+        return dedup_keys_dom_plain(a, w, cmask, rmask, cap, force=force,
+                                    iters=iters)
+    _dom_kernel_args((a, w), "dedup_keys_dom")
+    from jepsen_tpu_torch.lin import psort_cuda
+
+    rounds, chain = _dom_rounds(a.numel(), force, iters)
+    out, flags = psort_cuda.dedup_dom(a, w, cmask, rmask, cap,
+                                      pad_size(a.numel()), chain, rounds)
+    LAUNCHES["dedup_keys_dom"] += 1
+    return out, flags[0], flags[1] != 0
+
+
+def _dom_prune(ga, gw, keys, invalid, chain: int):
+    """One prune round over entries sorted by (group, word): ``ga`` and
+    ``gw`` are int64 bit patterns of the group and the word, ``keys``
+    equal exactly where both are equal, ``invalid`` the flagged entries
+    (they sort last). Returns the keep mask."""
+    n = ga.numel()
+    idx = torch.arange(n, device=ga.device)
+    no = torch.zeros(1, dtype=torch.bool, device=ga.device)
+    start = torch.cat([~no, ga[1:] != ga[:-1]])
+    dup = torch.cat([no, keys[1:] == keys[:-1]])
+    # Each group's first index, broadcast over the group (the reference's
+    # segmented scan): groups are contiguous after the sort.
+    gfirst = torch.cummax(torch.where(start, idx, 0), 0)[0]
+    f = gw[gfirst]
+    dominated = ((f & ~gw) == 0) & (gw != f)
+    # A predecessor at distance d is in the group exactly when d <= i -
+    # gfirst[i]; past the valid entries' longest span no distance can
+    # matter.
+    n_valid = int((~invalid).sum())
+    span = int((idx - gfirst)[:n_valid].max()) if n_valid else 0
+    for d in range(1, min(chain, span) + 1):
+        pw = gw[:-d]
+        hit = (ga[d:] == ga[:-d]) & ((pw & ~gw[d:]) == 0) & (pw != gw[d:])
+        dominated[d:] |= hit
+    return ~invalid & ~dup & ~dominated
+
+
+def _dom_rounds_plain(ga, gw, keys, invalid, rounds: int, chain: int):
+    """The prune rounds on sorted (group, word) entries, compacting the
+    survivors in order between rounds (the reference masks the rest to
+    the fill and sorts again, which gives the same array). Returns the
+    final (ga, gw, keep)."""
+    n = ga.numel()
+    keep = None
+    for rnd in range(rounds):
+        if rnd:
+            m = keep.nonzero().squeeze(1)
+            pad = n - m.numel()
+
+            def pack(x, fill):
+                return torch.cat([x[m], torch.full((pad,), fill,
+                                                   dtype=x.dtype,
+                                                   device=x.device)])
+
+            ga, gw = pack(ga, -1), pack(gw, -1)
+            keys, invalid = pack(keys, _u32.PAIR_FILL), pack(invalid, True)
+        keep = _dom_prune(ga, gw, keys, invalid, chain)
+    return ga, gw, keep
+
+
+def dedup_keys_dom_plain(a: torch.Tensor, w: torch.Tensor, cmask: int,
+                         rmask: int, cap: int, *, force: bool,
+                         iters: int = DOM_ITERS):
+    """:func:`dedup_keys_dom` in torch ops, on any device and at any size:
+    one sort of the (a, w) pairs as pair keys, the prune rounds, then a
+    sort of the survivors' full keys."""
+    _check_dom((a, w), cap, "dedup_keys_dom")
+    s, _ = torch.sort(_u32.pair_key(a, w))
+    sa, sw = _u32.pair_split(s)
+    ga, gw = _u32.widen(sa), _u32.widen(sw)
+    invalid = (ga & _INVALID) != 0
+    ga, gw, keep = _dom_rounds_plain(ga, gw, s, invalid,
+                                     *_dom_rounds(a.numel(), force, iters))
+    cm, rm = cmask & _u32.MASK32, rmask & _u32.MASK32
+    full = (ga & 0x7FFFFFFF) | (gw & cm) | (~gw & rm)
+    out, _ = torch.sort(torch.where(keep, full & _u32.MASK32, KEY_FILL))
+    return _dom_out(out, keep.sum(), cap, KEY_FILL,
+                    lambda k: (_u32.narrow(k),))
+
+
+def _dom_out(out, total, cap: int, fill, split):
+    """The first ``cap`` sorted keys (fill past the input) as the words
+    ``split`` makes of them, the clamped count and the overflow flag."""
+    if out.numel() < cap:
+        out = torch.cat([out, torch.full((cap - out.numel(),), fill,
+                                         dtype=out.dtype, device=out.device)])
+    return (*split(out[:cap]), torch.clamp(total, max=cap).to(torch.int32),
+            total > cap)
+
+
+def _pair_word(hi: int, lo: int) -> int:
+    """The int64 holding the bit pattern ``hi << 32 | lo`` of two u32
+    values (as :func:`jepsen_tpu_torch._u32.pair_bits` of tensors)."""
+    v = ((hi & _u32.MASK32) << 32) | (lo & _u32.MASK32)
+    return v - (1 << 64) if v >> 63 else v
+
+
+def dedup_keys2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                    w_hi: torch.Tensor, w_lo: torch.Tensor, cmask_hi: int,
+                    cmask_lo: int, rmask_hi: int, rmask_lo: int, cap: int, *,
+                    force: bool, iters: int = DOM_ITERS):
+    """Pair-key twin of :func:`dedup_keys_dom`: the group part is the pair
+    (a_hi, a_lo) with the invalid flag in a_hi's bit 31, the dominance
+    word the pair (w_hi, w_lo); entries sort by the 128-bit key (a_hi,
+    a_lo, w_hi, w_lo). The survivors' full keys are (hi, lo) =
+    ``((a_hi & 0x7FFFFFFF) | (w_hi & cmask_hi) | (~w_hi & rmask_hi),
+    a_lo | (w_lo & cmask_lo) | (~w_lo & rmask_lo))``, returned ascending:
+    (hi int32[cap], lo int32[cap] with (KEY_FILL, KEY_FILL) padding, count
+    int32, overflow bool). The CUDA path does not synchronise."""
+    words = (a_hi, a_lo, w_hi, w_lo)
+    _check_dom(words, cap, "dedup_keys2_dom")
+    if a_lo.device.type == "cpu":
+        return dedup_keys2_dom_plain(*words, cmask_hi, cmask_lo, rmask_hi,
+                                     rmask_lo, cap, force=force, iters=iters)
+    _dom_kernel_args(words, "dedup_keys2_dom")
+    from jepsen_tpu_torch.lin import psort_cuda
+
+    rounds, chain = _dom_rounds(a_lo.numel(), force, iters)
+    out_hi, out_lo, flags = psort_cuda.dedup2_dom(
+        *words, cmask_hi, cmask_lo, rmask_hi, rmask_lo, cap,
+        pad_size(a_lo.numel()), chain, rounds)
+    LAUNCHES["dedup_keys2_dom"] += 1
+    return out_hi, out_lo, flags[0], flags[1] != 0
+
+
+def dedup_keys2_dom_plain(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                          w_hi: torch.Tensor, w_lo: torch.Tensor,
+                          cmask_hi: int, cmask_lo: int, rmask_hi: int,
+                          rmask_lo: int, cap: int, *, force: bool,
+                          iters: int = DOM_ITERS):
+    """:func:`dedup_keys2_dom` in torch ops, on any device and at any size:
+    the 128-bit sort as two stable sorts (by word pair, then by group
+    pair), the prune rounds, then a sort of the survivors' full pair
+    keys."""
+    words = (a_hi, a_lo, w_hi, w_lo)
+    _check_dom(words, cap, "dedup_keys2_dom")
+    n = a_lo.numel()
+    ka, kw = _u32.pair_key(a_hi, a_lo), _u32.pair_key(w_hi, w_lo)
+    order = torch.sort(kw, stable=True)[1]
+    order = order[torch.sort(ka[order], stable=True)[1]]
+    ka, kw = ka[order], kw[order]
+    # Bit patterns (bit 63 = hi's bit 31) for the bit algebra.
+    ga, gw = ka ^ _u32.SIGN64, kw ^ _u32.SIGN64
+    invalid = ga < 0
+    # Distinct (ka, kw) pairs in sorted order get distinct ranks: the dup
+    # test compares both words.
+    keys = torch.stack([ka, kw], 1)
+    same = torch.cat([torch.zeros(1, dtype=torch.bool, device=ka.device),
+                      (keys[1:] == keys[:-1]).all(1)])
+    pair_id = torch.cumsum(~same, 0)
+    ga, gw, keep = _dom_rounds_plain(ga, gw, pair_id, invalid,
+                                     *_dom_rounds(n, force, iters))
+    cm, rm = _pair_word(cmask_hi, cmask_lo), _pair_word(rmask_hi, rmask_lo)
+    full = (ga & ~_u32.SIGN64) | (gw & cm) | (~gw & rm)
+    out, _ = torch.sort(torch.where(keep, full ^ _u32.SIGN64,
+                                    _u32.PAIR_FILL))
+    return _dom_out(out, keep.sum(), cap, _u32.PAIR_FILL, _u32.pair_split)

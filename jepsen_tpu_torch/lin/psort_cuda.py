@@ -1,7 +1,8 @@
 """ctypes binding of ``csrc/psort.cu``: the CUDA kernels behind
 :func:`jepsen_tpu_torch.lin.psort.dedup_keys`,
-:func:`jepsen_tpu_torch.lin.psort.compact_keys` and their pair-key
-twins ``dedup_keys2`` and ``compact_keys2``.
+:func:`jepsen_tpu_torch.lin.psort.compact_keys`, their pair-key
+twins ``dedup_keys2`` and ``compact_keys2``, and the dominance dedups
+``dedup_keys_dom`` and ``dedup_keys2_dom``.
 
 The functions here take CUDA tensors that the wrappers in
 :mod:`jepsen_tpu_torch.lin.psort` have checked, allocate the outputs and
@@ -36,6 +37,14 @@ def _load():
         lib.psort_dedup2_launch.restype = i
         lib.psort_compact2_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
         lib.psort_compact2_launch.restype = i
+        u = ctypes.c_uint32
+        lib.psort_dedup_dom_launch.argtypes = [p, p, u, u, i, i, i, i, i,
+                                               p, p, p, p, p, p, p, p]
+        lib.psort_dedup_dom_launch.restype = i
+        lib.psort_dedup2_dom_launch.argtypes = [p, p, p, p, u, u, u, u, i,
+                                                i, i, i, i, p, p, p, p, p,
+                                                p, p, p, p]
+        lib.psort_dedup2_dom_launch.restype = i
         _lib = lib
     return _lib
 
@@ -124,3 +133,61 @@ def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
             _stream(lo))
     _raise_on(rc, "psort compact_keys2", n, n_pad, cap)
     return out_hi, out_lo, count
+
+
+def _dom_scratch(n_pad: int, entry_words: int, full_dtype, dev):
+    """The dominance dedup's scratch: two entry buffers (``entry_words``
+    int64 words an entry), the keep flags, the block counts and the full
+    keys."""
+    return (torch.empty(n_pad * entry_words, dtype=torch.int64, device=dev),
+            torch.empty(n_pad * entry_words, dtype=torch.int64, device=dev),
+            torch.empty(n_pad, dtype=torch.uint8, device=dev),
+            torch.empty(n_pad // 1024 + 1, dtype=torch.int32, device=dev),
+            torch.empty(n_pad, dtype=full_dtype, device=dev))
+
+
+def dedup_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
+              cap: int, n_pad: int, chain: int, rounds: int):
+    """Launch the single-key dominance dedup. Returns (keys int32[cap],
+    flags int32[2] = (count, overflow)) on the keys' device."""
+    lib = _load()
+    n = a.numel()
+    dev = a.device
+    e0, e1, keep, blocks, full = _dom_scratch(n_pad, 1, torch.int32, dev)
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup_dom_launch(
+            a.data_ptr(), w.data_ptr(), cmask & 0xFFFFFFFF,
+            rmask & 0xFFFFFFFF, n, n_pad, cap, chain, rounds, e0.data_ptr(),
+            e1.data_ptr(), keep.data_ptr(), blocks.data_ptr(),
+            full.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream(a))
+    _raise_on(rc, "psort dedup_keys_dom", n, n_pad, cap)
+    return out, flags
+
+
+def dedup2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,
+               w_lo: torch.Tensor, cmask_hi: int, cmask_lo: int,
+               rmask_hi: int, rmask_lo: int, cap: int, n_pad: int,
+               chain: int, rounds: int):
+    """Launch the pair-key dominance dedup. Returns (hi int32[cap], lo
+    int32[cap], flags int32[2] = (count, overflow)) on the keys'
+    device."""
+    lib = _load()
+    n = a_lo.numel()
+    dev = a_lo.device
+    e0, e1, keep, blocks, full = _dom_scratch(n_pad, 2, torch.int64, dev)
+    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    m = 0xFFFFFFFF
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup2_dom_launch(
+            a_hi.data_ptr(), a_lo.data_ptr(), w_hi.data_ptr(),
+            w_lo.data_ptr(), cmask_hi & m, cmask_lo & m, rmask_hi & m,
+            rmask_lo & m, n, n_pad, cap, chain, rounds, e0.data_ptr(),
+            e1.data_ptr(), keep.data_ptr(), blocks.data_ptr(),
+            full.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(),
+            flags.data_ptr(), _stream(a_lo))
+    _raise_on(rc, "psort dedup_keys2_dom", n, n_pad, cap)
+    return out_hi, out_lo, flags

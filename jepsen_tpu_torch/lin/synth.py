@@ -97,6 +97,93 @@ def _apply_full(value, op):
     return value, op.value, False
 
 
+def generate_partitioned_register_history(
+        n_ops: int,
+        concurrency: int = 30,
+        seed: int = 0,
+        value_range: int = 5,
+        n_nodes: int = 5,
+        partition_every: int = 2000,
+        partition_len: int = 300,
+        max_crashes: int = 24,
+        fs: tuple = ("read", "write", "cas"),
+        invoke_bias: float = 0.6,
+) -> History:
+    """A linearizable-by-construction register history under a partition
+    nemesis: the shape of BASELINE config 5 (partitioned 100k-op register
+    histories at cockroach's concurrency 30).
+
+    Processes stripe over ``n_nodes`` nodes (node = process mod nodes).
+    Every ``partition_every`` invocations a partition isolates the two
+    minority nodes for ``partition_len`` invocations: minority mutators
+    that complete during it time out indeterminate (``info``, not
+    applied), which the checker must treat as possibly applied forever,
+    and minority reads fail. Crashed processes re-incarnate, and at most
+    ``max_crashes`` ops crash, so the window stays at most concurrency +
+    max_crashes. ``invoke_bias`` sets how saturated the schedule runs:
+    0.6 keeps nearly every process pending; lower values stagger the
+    invocations.
+    """
+    rng = random.Random(seed)
+    value: Any = None
+    h: list[Op] = []
+    procs = list(range(concurrency))
+    pending: dict[int, Op] = {}
+    crashes = 0
+    invoked = 0
+    minority = {n_nodes - 2, n_nodes - 1}
+
+    def node_of(proc: int) -> int:
+        return proc % n_nodes
+
+    def partitioned_at(k: int) -> bool:
+        return partition_every > 0 and \
+            0 <= (k % partition_every) - (partition_every - partition_len) \
+            < partition_len
+
+    while invoked < n_ops or pending:
+        cut = partitioned_at(invoked)
+        can_invoke = invoked < n_ops and len(pending) < concurrency
+        if can_invoke and (not pending or rng.random() < invoke_bias):
+            free = [p for p in procs if p not in pending]
+            if cut:
+                free = [p for p in free if node_of(p) not in minority] \
+                    or free
+            proc = rng.choice(free)
+            f = rng.choice(fs)
+            if f == "read":
+                op = Op("invoke", "read", None, proc)
+            elif f == "write":
+                op = Op("invoke", "write", rng.randrange(value_range), proc)
+            else:
+                op = Op("invoke", "cas",
+                        [rng.randrange(value_range),
+                         rng.randrange(value_range)], proc)
+            pending[proc] = op
+            h.append(op)
+            invoked += 1
+        else:
+            proc = rng.choice(list(pending))
+            op = pending.pop(proc)
+            if cut and node_of(proc) in minority:
+                # An isolated client: reads fail, mutators time out
+                # indeterminate (a minority cannot commit).
+                if op.f == "read" or crashes >= max_crashes:
+                    h.append(Op("fail", op.f, op.value, proc))
+                else:
+                    h.append(Op("info", op.f, op.value, proc))
+                    crashes += 1
+                    i = procs.index(proc)
+                    procs[i] = proc + concurrency
+                continue
+            value, result, ok = _apply_full(value, op)
+            if ok:
+                h.append(Op("ok", op.f, result, proc))
+            else:
+                h.append(Op("fail", op.f, op.value, proc))
+    return index_history(History(h))
+
+
 def generate_mutex_history(n_ops: int,
                            concurrency: int = 5,
                            seed: int = 0,

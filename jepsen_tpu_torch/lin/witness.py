@@ -6,14 +6,17 @@ sparse engine's decoded keys), and on an invalid verdict this module
 replays just the failing tail on the host:
 
 1. take the last snapshot at or before the dead row — the exact closed
-   config set the device search had there;
+   config set the device search had there: a chunk's entry, a spike
+   mini-chunk's, or (the crash-dom bands' host-row executor) the dead
+   row's own entry;
 2. run the CPU oracle's closure (:func:`jepsen_tpu_torch.lin.cpu.search_rows`)
    from that set through the dead row, tracking linearization order;
 3. emit ``final-paths``: for each config alive at the failure, its model
    state and the op path that reached it.
 
 The replay is bounded by one chunk of return events (one row of a
-sparse spike), whatever the history's length.
+sparse spike or of the host-row executor), whatever the history's
+length.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ def tail_replay(p: PackedHistory, nil_id: int, snapshots: list,
 def tail_replay_sparse(p: PackedHistory, snapshots: list, dead_row: int,
                        cancel=None) -> dict:
     """Sparse-engine counterexample: snapshots are ``(base_row,
-    bits[cap, NW], state[cap, S], count)`` chunk-entry frontiers (numpy);
-    decode the multi-word bitsets and replay the tail."""
+    bits[cap, NW], state[cap, S], count)`` frontiers (numpy) at a chunk's
+    entry or at a host row's entry (one row of replay); decode the
+    multi-word bitsets and replay the tail."""
     usable = [s for s in snapshots if s[0] <= dead_row]
     if not usable:
         return {}

@@ -143,8 +143,10 @@ def _wide_window(H, n=21, crash=False):
 
 
 def test_a_window_past_the_dense_engine_is_an_honest_unknown():
-    # Crash-free, the sparse engine decides it; with a crashed op it is
-    # in the crash-dom band, which the port does not take yet.
+    # Crash-free, the sparse engine decides it; with a crashed op it is in
+    # the crash-dom band, which the sparse engine decides too. An unknown
+    # remains where a frontier outgrows the last host capacity (here a
+    # tiny one), and "competition" then takes the CPU oracle's verdict.
     h = _wide_window(th)
     assert tprep.prepare(tm.cas_register(), h).window == 21
     r = tchecker.linearizable(algorithm="gpu", device="cpu").check(
@@ -154,8 +156,12 @@ def test_a_window_past_the_dense_engine_is_an_honest_unknown():
     assert tprep.prepare(tm.cas_register(), hc).window == 22
     r = tchecker.linearizable(algorithm="gpu", device="cpu").check(
         None, tm.cas_register(), hc)
-    assert r["valid?"] == "unknown"
-    assert r["error"] == "crash-dom band (crashed ops) not yet ported"
+    assert r["valid?"] is True and r["analyzer"] == "gpu-bfs"
+    r = tchecker.linearizable(algorithm="gpu", device="cpu",
+                              cap_schedule=(1,), host_caps=(1,)).check(
+        None, tm.cas_register(), hc)
+    assert r["valid?"] == "unknown" and r["overflow"] == "capacity"
+    assert r["error"] == "frontier exceeded capacity 1"
     c = tchecker.linearizable(algorithm="competition", device="cpu").check(
         None, tm.cas_register(), hc)
     assert c["valid?"] is True
