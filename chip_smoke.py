@@ -23,8 +23,11 @@ raises on a failure:
    invalid, on the same op, with final paths from the GPU;
 6. the plain version's time beside the kernel's at the headline's shapes;
 7. the sparse kernels vs their plain versions on the card, bit-exact:
-   ``dedup_keys`` and ``compact_keys`` at n = 2^10 ... 2^19 (overflowing,
-   all-invalid, sorted-with-holes and arbitrary inputs), and ``fixpoint``
+   ``dedup_keys`` at n = 2^10 ... 2^21 and the unpadded 1,500, 262,151
+   and 1,048,573 (overflowing, all valid, all invalid, every key equal,
+   exactly cap and cap + 1 survivors, one key apart in bit 30),
+   ``compact_keys`` at n = 2^10 ... 2^19 and 1,500 (sorted-with-holes
+   and arbitrary inputs), and ``fixpoint``
    on the sparse headline's own rows and frontiers at every row tier its
    gate admits, converged, at ``it_max=1`` and overflowing;
 8. the sparse headline: a 20k-op, concurrency-24 CAS-register history
@@ -38,22 +41,33 @@ raises on a failure:
    invalid on the same op and dead row, with final paths from the GPU;
 10. each sparse kernel's time, its plain version's and one PyTorch
     call's (``torch.unique``, ``torch.sort``) at the headline's most
-    frequent shapes, with its bound;
+    frequent shapes, with its bound; and ``dedup_keys`` at the spike
+    tiers' sizes n = 2^19, 2^20 and 2^21 beside the engine's torch.sort
+    twin (``bfs._dedup_keys_sort``) and ``torch.unique``, on the
+    headline shape's candidates tiled to each size, with its launches
+    per call (the launcher's count, which must be 2 + key bytes) and
+    each kernel's device µs a launch (``torch.profiler``): the
+    measurements behind the dedup gate ``psort.DEDUP_MAX_N``, which
+    must hold in the run;
 11. the pair-key kernels vs their plain versions on the card,
-    bit-exact: ``dedup_keys2`` and ``compact_keys2`` at n = 2^10 ...
-    2^19 (equal hi with different lo, lo's bit 31 as payload, holes,
-    duplicates, all invalid, overflowing caps), and ``fixpoint`` in pair
+    bit-exact: ``dedup_keys2`` at the sizes of phase 7 and
+    ``compact_keys2`` at n = 2^10 ... 2^19 and 1,500 (equal hi with
+    different lo, lo's bit 31 as payload, holes, duplicates, all valid,
+    all invalid, every pair equal, exactly cap and cap + 1 survivors, one
+    pair apart in hi's bit 30 or in lo's bit 31, overflowing caps), and
+    ``fixpoint`` in pair
     mode on the pair headline's own rows at every tier its gate admits
     (both placements), converged, at ``it_max=1`` and overflowing;
 12. the pair headline: a 5k-op, concurrency-30 CAS-register history
     (window 29, past one u32 key) through ``checker.linearizable``,
-    valid by ``gpu-bfs`` with every pair kernel launched, then a timed
-    device check, as in phase 8;
+    valid by ``gpu-bfs`` with every pair kernel launched and its known
+    launch and fetch counts, then a timed device check, as in phase 8;
 13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
 14. each pair kernel's time beside its plain version, one PyTorch call
-    and its bound, at the pair headline's most frequent shapes;
+    and its bound, at the pair headline's most frequent shapes, and
+    ``dedup_keys2`` at the spike sizes as in phase 10;
 15. the dominance dedups of the crash-dom bands vs their plain versions
     on the card, bit-exact: ``dedup_keys_dom`` and ``dedup_keys2_dom`` in
     forced mode at 2 and 6 rounds and unforced, at padded sizes 2^10 ...
@@ -253,20 +267,39 @@ SPARSE_FETCHES = 61_995
 # spike cap (overflow: capacity); 5k ops decides. Halving again gives
 # window 28, which is the single-key band.
 PAIR = dict(n_ops=5_000, concurrency=30, seed=42, value_range=5)
+# Its launch and fetch counts. Its dedups at the spike tiers 524,288 and
+# 1,048,576 (3,932 and 5,428 grouped passes) are inside the dedup gate
+# and launch the kernel: 53,036 + 9,360 dedup_keys2 launches. Its 72
+# compactions past the compaction gate take torch.sort.
+PAIR_LAUNCHES = {"dedup_keys2": 62_396, "compact_keys2": 2_412,
+                 "fixpoint_pair": 1_481}
+PAIR_FETCHES = 66_143
 # A pair history past 32 bitset bits (window 37), corrupted so that it
 # dies at row 3: the GPU against the CPU oracle, with final paths. (The
 # explain replay runs the unreduced CPU search from the chunk's entry, so
 # a later death, such as seed 7's at row 15, takes minutes to explain.)
 WIDE_PAIR = dict(n_ops=2_000, concurrency=40, seed=42, value_range=5)
 WIDE_PAIR_CORRUPT_SEED = 42
+# The compaction kernels' sizes (their gate, psort.PSORT_MAX_N, is 2^19)
+# and the dedups': every padded size up to the spike tiers' 2^21 and
+# three sizes that are not powers of two.
 SORT_SIZES = tuple(1 << k for k in range(10, 20))
+COMPACT_SIZES = SORT_SIZES + (1500,)
+DEDUP_SIZES = tuple(1 << k for k in range(10, 22)) + (1500, 262_151,
+                                                     1_048_573)
+# The spike tiers' dedup sizes (tier x 2 candidates at tiers 262,144,
+# 524,288 and 1,048,576), where phases 10 and 14 time the dedups beside
+# the engine's torch.sort twins to set psort.DEDUP_MAX_N.
+SPIKE_SIZES = (1 << 19, 1 << 20, 1 << 21)
 # Rows of a sparse headline whose entry frontiers feed the fixpoint
 # checks (the first chunk).
 FIXPOINT_ROWS = 512
 # Integer ops per compare-exchange of a comparison sort (compare,
-# select) and per key of a dedup or compaction scan; a floor on the work.
+# select), per key of a dedup or compaction scan, and per key and digit
+# of a radix sort (extract, rank, scatter); a floor on the work.
 OPS_PER_COMPARE = 2
 OPS_PER_SCAN_KEY = 2
+OPS_PER_RADIX_DIGIT = 3
 FILL = 0xFFFFFFFF
 
 
@@ -312,6 +345,21 @@ def sort_inputs(rng, n):
     arb[rng.random(n) < 0.3] = FILL
     arb[:n // 8] = arb[n // 8:2 * (n // 8)]
     compact = [(holes, n), (arb, max(n // 2, 1))]
+    # All valid; every key equal; exactly cap and cap + 1 survivors; one
+    # key apart from the rest in bit 30 (so that its digit pass must run).
+    c = n // 4
+    u = np.unique(rng.integers(0, 1 << 30, 2 * c + 16, dtype=np.uint64))
+    rng.shuffle(u)
+    exact = np.concatenate([u[:c], rng.choice(u[:c], n - c)]) \
+        .astype(np.uint32)
+    rng.shuffle(exact)
+    apart = rng.integers(0, 1 << 24, n).astype(np.uint32)
+    apart[rng.integers(n)] |= np.uint32(1 << 30)
+    ones = np.ones(n, bool)
+    dedup += [(wide, ones, max(n // 4, 1)),
+              (np.full(n, (1 << 30) | 5, np.uint32), rng.random(n) < 0.5,
+               max(n // 8, 1)),
+              (exact, ones, c), (exact, ones, c - 1), (apart, ones, n)]
     return dedup, compact
 
 
@@ -326,7 +374,8 @@ def pair_inputs(rng, n):
     hi = rng.integers(0, 4, n).astype(np.uint32)
     lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     lo[::3] |= np.uint32(1 << 31)
-    hi[:n // 4], lo[:n // 4] = hi[n // 4:n // 2], lo[n // 4:n // 2]
+    q = n // 4
+    hi[:q], lo[:q] = hi[q:2 * q], lo[q:2 * q]
     hole = rng.random(n) < 0.1
     hi[hole], lo[hole] = FILL, FILL
     u = np.unique(rng.integers(0, 1 << 50, 2 * n, dtype=np.uint64))[:n]
@@ -346,13 +395,36 @@ def pair_inputs(rng, n):
     gone = rng.random(n) < 0.3
     ahi[gone], alo[gone] = FILL, FILL
     compact = [(shi, slo, n), (ahi, alo, max(n // 2, 1))]
+    # All valid; every pair equal; exactly cap and cap + 1 survivors; one
+    # pair apart from the rest in hi's bit 30, and one in lo's bit 31.
+    c = n // 4
+    u = np.unique(rng.integers(0, 1 << 62, 2 * c + 16, dtype=np.uint64))
+    rng.shuffle(u)
+    exact = np.concatenate([u[:c], rng.choice(u[:c], n - c)])
+    rng.shuffle(exact)
+    ehi, elo = (exact >> np.uint64(32)).astype(np.uint32), \
+        exact.astype(np.uint32)
+    bhi = rng.integers(0, 2, n).astype(np.uint32)
+    blo = rng.integers(0, 1 << 24, n).astype(np.uint32)
+    bhi[rng.integers(n)] |= np.uint32(1 << 30)
+    chi = np.zeros(n, np.uint32)
+    clo = rng.integers(0, 1 << 24, n).astype(np.uint32)
+    clo[rng.integers(n)] |= np.uint32(1 << 31)
+    ones = np.ones(n, bool)
+    dedup += [(whi, wlo, ones, max(n // 4, 1)),
+              (np.full(n, 1 << 30, np.uint32),
+               np.full(n, (1 << 31) | 1, np.uint32), rng.random(n) < 0.5,
+               max(n // 8, 1)),
+              (ehi, elo, ones, c), (ehi, elo, ones, c - 1),
+              (bhi, blo, ones, n), (chi, clo, ones, n)]
     return dedup, compact
 
 
 def check_sort_kernels(dev, pair: bool) -> int:
-    """Phase 7a / 11a: dedup_keys and compact_keys (``pair``: their pair
-    twins) against their plain versions at every size 2^10 ... 2^19 and
-    one unpadded size. Returns the max word error (0, or it raises)."""
+    """Phase 7a / 11a: dedup_keys (``pair``: dedup_keys2) against its
+    plain version at every size of DEDUP_SIZES, compact_keys (or
+    compact_keys2) at every size of COMPACT_SIZES. Returns the max word
+    error (0, or it raises)."""
     import numpy as np
     import torch
 
@@ -365,7 +437,7 @@ def check_sort_kernels(dev, pair: bool) -> int:
     rng = np.random.default_rng(79 if pair else 77)
     tag = "2" if pair else ""
     max_err = 0
-    for n in SORT_SIZES + (1500,):
+    for n in DEDUP_SIZES:
         flags = []
         if pair:
             dedup, compact = pair_inputs(rng, n)
@@ -375,7 +447,7 @@ def check_sort_kernels(dev, pair: bool) -> int:
                     for h, lo, v, cap in dedup]
             runs += [("compact_keys2", psort.compact_keys2,
                       psort.compact_keys2_plain, (t(h), t(lo), cap))
-                     for h, lo, cap in compact]
+                     for h, lo, cap in compact if n in COMPACT_SIZES]
         else:
             dedup, compact = sort_inputs(rng, n)
             runs = [("dedup_keys", psort.dedup_keys, psort.dedup_keys_plain,
@@ -383,7 +455,7 @@ def check_sort_kernels(dev, pair: bool) -> int:
                     for k, v, cap in dedup]
             runs += [("compact_keys", psort.compact_keys,
                       psort.compact_keys_plain, (t(k), cap))
-                     for k, cap in compact]
+                     for k, cap in compact if n in COMPACT_SIZES]
         for name, kern_fn, plain_fn, args in runs:
             kern = kern_fn(*args)
             plain = plain_fn(*args)
@@ -396,7 +468,7 @@ def check_sort_kernels(dev, pair: bool) -> int:
             dedup_run = name.startswith("dedup")
             cnt = int(kern[-2] if dedup_run else kern[-1])
             flags.append(f"{cnt}{'+' if dedup_run and bool(kern[-1]) else ''}")
-        log(f"[sort{tag}-vs-plain] n={n:6d} bit_exact=True counts (dedup+ = "
+        log(f"[sort{tag}-vs-plain] n={n:7d} bit_exact=True counts (dedup+ = "
             f"overflow; then compact) {' '.join(flags)}")
     return max_err
 
@@ -583,6 +655,21 @@ def sort_bound(n: int, out_n: int, in_bytes_per_key: int,
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
+def radix_dedup_bound(n: int, live: int, digits: int, out_n: int,
+                      in_bytes_per_key: int, out_bytes_per_key: int):
+    """Least time for a radix sort-dedup of n integer keys of which
+    ``live`` are valid and differ in ``digits`` 8-bit digits: the bytes
+    (keys and flags in, keys out) over the memory rate, or a scan of the
+    n keys plus, per live key, a digit's extract, rank and scatter for
+    each varying digit and a first-of-run test, over the integer rate."""
+    nbytes = n * in_bytes_per_key + out_bytes_per_key * out_n + 8
+    ops = n * OPS_PER_SCAN_KEY \
+        + live * (digits * OPS_PER_RADIX_DIGIT + OPS_PER_SCAN_KEY)
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
+
+
 def fixpoint_bound(cap: int, M: int, b: int, counts, words: int = 1):
     """Least time for one fused fixpoint: the keys (``words`` u32 words
     each) in and out and the tables, or per pass, for the c carried keys
@@ -723,11 +810,114 @@ def counterexample(dev, model, h, seed: int, tag: str):
     return pc
 
 
+RADIX_KERNELS = ("dedup_load", "radix_pass", "dedup_finish")
+
+
+def launch_profile(fn, key_bytes: int):
+    """The kernels one call of ``fn`` (a radix dedup of keys of
+    ``key_bytes``) launches, by the launcher's own count, which must be
+    the design's 2 + key_bytes (the load, a pass per 8-bit digit, the
+    finish), and each kernel's mean device µs a launch as
+    ``torch.profiler`` traces five calls ({} where the trace holds no
+    device event of it: a trace can miss some)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jepsen_tpu_torch.lin import psort_cuda
+
+    fn()
+    torch.cuda.synchronize()
+    before = psort_cuda.dedup_kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    launches = (psort_cuda.dedup_kernel_launches() - before) / 5
+    if launches != 2 + key_bytes:
+        raise AssertionError(f"the radix dedup launched {launches:g} "
+                             f"kernels a call, not {2 + key_bytes}")
+    us = {}
+    for k in RADIX_KERNELS:
+        ts = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type.name == "CUDA" and k in e.name]
+        if ts:
+            us[k] = sum(ts) / len(ts)
+    return launches, us
+
+
+def profile_note(launches, us) -> str:
+    each = ", ".join(f"{k} {us[k]:.1f}" if k in us else f"{k} not measured"
+                     for k in RADIX_KERNELS)
+    return f"{launches:g} launches a call; mean device us a launch: {each}"
+
+
+def spike_times(eng, cand, cand_hi, valid, pair: bool) -> list:
+    """Phase 10b / 14b: the dedup kernel at the spike sizes beside the
+    engine's torch.sort twin and torch.unique, on the headline shape's
+    candidates tiled to each size, copy i moved by i in key bits above
+    the band's (so that the copies are distinct, as a wider frontier's
+    configs are), with cap = n / 2 (the spike tier). Raises where the
+    kernel loses to the twin inside the dedup gate (on the card; a CPU
+    rehearsal times the plain versions)."""
+    import torch
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import bfs, psort
+
+    tag = "pair" if pair else "sparse"
+    shift = eng.W + eng.b - (32 if pair else 0)
+    out = []
+    for n in SPIKE_SIZES:
+        reps = -(-n // cand.numel())
+        if max(shift, 0) + reps.bit_length() > 31:
+            raise AssertionError(f"no free key bits to tile to n={n}")
+        moved = torch.arange(reps, device=cand.device, dtype=torch.int32) \
+            .repeat_interleave(cand.numel()) << max(shift, 0)
+        v = valid.repeat(reps)[:n].contiguous()
+        if pair:
+            lo = cand.repeat(reps)[:n].contiguous()
+            hi = (cand_hi.repeat(reps) | moved)[:n].contiguous()
+            args = (hi, lo, v, n // 2)
+            kern, twin = psort.dedup_keys2, bfs._dedup_keys2_sort
+            flagged = torch.where(v, hi, hi | torch.iinfo(torch.int32).min)
+            key = _u32.pair_key(flagged, lo)
+        else:
+            k = (cand.repeat(reps) | moved)[:n].contiguous()
+            args = (k, v, n // 2)
+            kern, twin = psort.dedup_keys, bfs._dedup_keys_sort
+            key = _u32.widen(k) | ((~v).to(torch.int64) << 31)
+        got, want = kern(*args), twin(*args)
+        same, err = same_outputs(got, want)
+        if not same:
+            raise AssertionError(f"{kern.__name__} != its sort twin at "
+                                 f"n={n}, error {err}")
+        ms = time_chunk(lambda: kern(*args), 20)
+        twin_ms = time_chunk(lambda: twin(*args), 10)
+        lib = time_chunk(lambda: torch.unique(key, sorted=True), 20)
+        launches, us = launch_profile(lambda: kern(*args), 8 if pair else 4)
+        gated = psort.dedup_available(n)
+        log(f"[{tag}-time] {kern.__name__} n={n} cap={n // 2} live="
+            f"{int(v.sum())} count={int(got[-2])}: kernel {ms:.4f} ms "
+            f"({profile_note(launches, us)}), sort twin {twin_ms:.4f} ms, "
+            f"torch.unique {lib:.4f} ms; inside the dedup gate: {gated}")
+        if gated and ms >= twin_ms and cand.is_cuda:
+            raise AssertionError(f"dedup gate: the kernel ({ms:.4f} ms) "
+                                 f"loses to the sort twin ({twin_ms:.4f} "
+                                 f"ms) at n={n}")
+        out.append({"n": n, "cap": n // 2, "ms": ms, "sort_twin_ms": twin_ms,
+                    "library_ms": lib, "launches_per_call": launches,
+                    "launch_us": us,
+                    "inside_gate": gated})
+    return out
+
+
 def shape_times(eng, fronts, stats, pair: bool):
     """Phase 10 / 14: each sparse kernel's time at the headline's most
     frequent shape, its plain version's, one PyTorch call's and its
-    bound. Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
-    shape)}."""
+    bound; the dedup's at the spike sizes (:func:`spike_times`). Returns
+    ({name: (ms, plain_ms, library_ms, bound_ms, bound_by, shape)}, the
+    dedup's extra entries)."""
     import torch
 
     from jepsen_tpu_torch import _u32
@@ -825,12 +1015,22 @@ def shape_times(eng, fronts, stats, pair: bool):
     ms = time_chunk(lambda: kern(*args), 50)
     plain = time_chunk(lambda: plain_fn(*args), 20)
     lib = time_chunk(lambda: torch.unique(key, sorted=True), 50)
-    bound, by = sort_bound(n_d, d_tier, 4 * words + 1, 4 * words)
-    out[name] = (ms, plain, lib, bound, by, {"n": n_d, "cap": d_tier})
+    live = key[valid]
+    digits = sum(int(d.amin() != d.amax()) for d in
+                 ((live >> (8 * i)) & 0xFF for i in range(4 * words)))
+    bound, by = radix_dedup_bound(n_d, int(valid.sum()), digits, d_tier,
+                                  4 * words + 1, 4 * words)
+    out[name] = (ms, plain, lib, bound, by,
+                 {"n": n_d, "cap": d_tier, "digits": digits})
+    launches, us = launch_profile(lambda: kern(*args), 4 * words)
     log(f"[{tag}-time] {name} n={n_d} cap={d_tier} ({unfused.get(d_tier, 0)}"
-        f" passes at this tier): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch.unique {lib:.4f} ms, bound {bound:.6f} ms ({by})")
-    return out
+        f" passes at this tier, {int(valid.sum())} candidates valid): "
+        f"kernel {ms:.4f} ms ({profile_note(launches, us)}), plain "
+        f"{plain:.4f} ms, torch.unique {lib:.4f} ms, bound {bound:.6f} ms "
+        f"({by}; {digits} digits vary)")
+    extra = {"launches_per_call": launches, "launch_us": us,
+             "spike": spike_times(eng, cand, cand_hi, valid, pair)}
+    return out, {name: extra}
 
 
 SRC = "jepsen_tpu_torch/csrc/"
@@ -903,11 +1103,13 @@ def sparse_phases(dev) -> list:
     counterexample(dev, model, h, SPARSE_CORRUPT_SEED, "sparse")
 
     # 10. times at the headline's most frequent shapes
-    times = shape_times(eng, fronts, r["engine-stats"], pair=False)
+    times, dedup_extra = shape_times(eng, fronts, r["engine-stats"],
+                                     pair=False)
     errs = {"dedup_keys": sort_err, "compact_keys": sort_err,
             "fixpoint": fix_err}
-    extra = {"dedup_keys": {"sizes": list(SORT_SIZES) + [1500]},
-             "compact_keys": {"sizes": list(SORT_SIZES) + [1500]},
+    extra = {"dedup_keys": {"sizes": list(DEDUP_SIZES),
+                            **dedup_extra["dedup_keys"]},
+             "compact_keys": {"sizes": list(COMPACT_SIZES)},
              "fixpoint": {"tiers": fix_tiers}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
 
@@ -943,6 +1145,11 @@ def pair_phases(dev) -> list:
     # Its run through the entry point is its clean run, as in phase 8.
     r, launches, per_kernel = headline(dev, model, h, kernels, "pair",
                                        clean_check=False)
+    fetches = r["engine-stats"]["fetches"]
+    if launches != PAIR_LAUNCHES or fetches != PAIR_FETCHES:
+        raise AssertionError(f"pair headline: launches {launches} fetches "
+                             f"{fetches}, expected {PAIR_LAUNCHES} and "
+                             f"{PAIR_FETCHES}")
 
     # 13. a wide pair history (window > 32, two-word bitsets): a
     # counterexample against the CPU oracle
@@ -953,11 +1160,13 @@ def pair_phases(dev) -> list:
                              f"{pc.window}, not a pair window past 32")
 
     # 14. times at the headline's most frequent shapes
-    times = shape_times(eng, fronts, r["engine-stats"], pair=True)
+    times, dedup_extra = shape_times(eng, fronts, r["engine-stats"],
+                                     pair=True)
     errs = {"dedup_keys2": sort_err, "compact_keys2": sort_err,
             "fixpoint_pair": fix_err}
-    extra = {"dedup_keys2": {"sizes": list(SORT_SIZES) + [1500]},
-             "compact_keys2": {"sizes": list(SORT_SIZES) + [1500]},
+    extra = {"dedup_keys2": {"sizes": list(DEDUP_SIZES),
+                             **dedup_extra["dedup_keys2"]},
+             "compact_keys2": {"sizes": list(COMPACT_SIZES)},
              "fixpoint_pair": {"tiers": fix_tiers}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
 

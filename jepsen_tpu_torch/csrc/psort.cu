@@ -3,9 +3,9 @@
 // Replaces four TPU kernels of jepsen_tpu/lin/psort.py:
 //
 //   dedup_keys    (pallas_call in _dedup_call, body _dedup_body, sort
-//                  _bitonic_sort): u32 keys with their invalid flag folded
-//                  into bit 31, padded with KEY_FILL to n_pad (a power of
-//                  two, 2^10..2^19) -> the distinct valid keys ascending in
+//                  _bitonic_sort, where the TPU pads to a power of two up
+//                  to 2^19): u32 keys with their invalid flag folded into
+//                  bit 31 -> the distinct valid keys ascending in
 //                  out[0 .. cap), KEY_FILL after them, and
 //                  flags = {min(total, cap), total > cap};
 //   compact_keys  (pallas_call in _compact_call, body _compact_body): the
@@ -29,27 +29,51 @@
 // the pair band lo's bit 31 is payload (at window 29 with 3 state bits it
 // is slot 28's key bit), which the 64-bit key keeps below the flag.
 //
-// Design. The sort is a bitonic network over n_pad keys. Strides below a
-// tile of 32 KiB (8192 single keys, 4096 pairs) run inside one block in
-// shared memory, many stages per launch; larger strides are one launch
-// each of global-memory compare-exchanges, one pair per thread across the
-// whole card (n_pad up to 2^19 keys, 2 or 4 MiB, resident in the 50 MB
-// L2). The network's output is the sorted array whatever its stage order,
-// so the result equals the TPU kernel's bit for bit. After the sort, dedup
-// keeps the first key of each run with the flag clear. Where the TPU
-// kernel re-sorts to pack the survivors, this one counts them per
-// 1024-key block, scans the block counts in one block, and scatters each
-// survivor to its rank: the survivors are already in order, so the prefix
-// is the same. count and overflow stay on the device; nothing here
-// synchronises with the host.
+// The dedup path (dedup_keys, dedup_keys2) sorts only the live keys, by
+// an LSD radix sort with 8-bit digits, and never pads. Per call, after one
+// cudaMemsetAsync of the look-back status words, histograms and tickets:
 //
-// What bounds it on this card: launches and L2 traffic. At n_pad = 2^19
-// the single-key sort is 1 tile launch + 21 global stages + 6 tile merges
-// (pairs: 1 + 28 + 7), each moving the array through L2; the bytes the
-// function must move (keys in, keys out) take about a microsecond at
-// 3.35 TB/s. A later change can keep more strides on chip (a thread-block
-// cluster sorting in distributed shared memory) or fuse dedup into the
-// last merge.
+//   dedup_load    folds ~valid into the flag, writes the live keys (flag
+//                 clear) to the front of a scratch buffer (each block's
+//                 offset from one atomicAdd on the device-side live count:
+//                 the order of the live keys does not matter, as the
+//                 output is their sorted set), adds every digit's
+//                 histogram, and fills out[0 .. cap) with the fill key.
+//                 Its last block (a done counter) plans the passes on the
+//                 device: each digit's bucket bases, and the ping-pong
+//                 buffer each pass reads, or -1 where every live key falls
+//                 in one bucket (the pass would be the identity);
+//   radix_pass    one per digit (4 for u32 keys, 8 for pairs): blocks take
+//                 tiles in ticket order and exit past the live count or on
+//                 a planned skip; each ranks its tile by warp multisplit
+//                 (__match_any_sync) in shared memory, stably, takes its
+//                 buckets' global offsets by decoupled look-back (a status
+//                 word per tile and digit), and writes the tile out in
+//                 digit order;
+//   dedup_finish  keeps the first key of each run, ranks the survivors by
+//                 a warp-ballot scan and a look-back over tiles, writes
+//                 out[rank] for rank < cap and the flags
+//                 {min(total, cap), total > cap}.
+//
+// That is 6 launches a call for single keys and 10 for pairs at every n
+// up to kDedupMaxN = 2^21, the engine's gate psort.DEDUP_MAX_N (24 and 31
+// for the bitonic path it replaced at n_pad = 2^18). A skipped
+// digit costs a launch whose blocks exit at once: the band's unused high
+// bits move no data. Nothing synchronises with the host. What bounds it
+// on this card: launch latency and the dependent look-back chain at the
+// engine's sizes (the bytes, the live keys read and written once per
+// digit pass, take microseconds at 3.35 TB/s at n = 2^21 pairs).
+//
+// compact_keys and compact_keys2 sort by a bitonic network over n_pad
+// keys. Strides below a tile of 32 KiB (8192 single keys, 4096 pairs) run
+// inside one block in shared memory, many stages per launch; larger
+// strides are one launch each of global-memory compare-exchanges, one pair
+// per thread across the whole card (n_pad up to 2^19 keys, resident in the
+// 50 MB L2). The network's output is the sorted array whatever its stage
+// order, so the result equals the TPU kernel's bit for bit. count stays on
+// the device. At n_pad = 2^19 the single-key sort is 1 tile launch + 21
+// global stages + 6 tile merges (pairs: 1 + 28 + 7), each moving the array
+// through L2: launches and L2 traffic bound it.
 //
 // Dominance. The TPU kernels, and the engine's forced lax path that the
 // crash-dom bands really run (jepsen_tpu/lin/bfs.py _dedup_keys_dom and
@@ -86,7 +110,8 @@ constexpr int kThreads = 1024;
 // Bytes of shared memory per sort tile: every stride below the tile runs
 // in one launch. 32 KiB stays under the 48 KiB of static shared memory.
 constexpr int kTileBytes = 32768;
-// Keys per block in the dedup count and scatter: one per thread.
+// Entries per block in the dominance dedups' counts and compactions: one
+// per thread.
 constexpr int kSeg = kThreads;
 constexpr int kMinN = 1024;
 constexpr int kMaxN = 1 << 19;
@@ -183,22 +208,16 @@ __device__ void tile_stages(K* s, int tile, int base, int k, int j0) {
   }
 }
 
-// Loads a tile (folding ~valid into the flag bit and padding with the
-// fill key when `valid` is given, padding only otherwise), sorts it in
-// alternating directions (bitonic sizes 2 .. tile), and stores it to work.
+// Loads a tile (padding with the fill key), sorts it in alternating
+// directions (bitonic sizes 2 .. tile), and stores it to work.
 template <typename K>
-__global__ void sort_tiles(const uint32_t* hi, const uint32_t* lo,
-                           const uint8_t* valid, int n, int tile, K* work) {
+__global__ void sort_tiles(const uint32_t* hi, const uint32_t* lo, int n,
+                           int tile, K* work) {
   __shared__ K s[KeyOf<K>::kTile];
   const int base = blockIdx.x * tile;
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
     const int g = base + i;
-    K v = KeyOf<K>::kFill;
-    if (g < n) {
-      v = load_key<K>(hi, lo, g);
-      if (valid != nullptr && !valid[g]) v |= KeyOf<K>::kInvalid;
-    }
-    s[i] = v;
+    s[i] = g < n ? load_key<K>(hi, lo, g) : KeyOf<K>::kFill;
   }
   __syncthreads();
   for (int k = 2; k <= tile; k <<= 1) tile_stages(s, tile, base, k, k >> 1);
@@ -249,14 +268,12 @@ void merge_all(K* work, int n_pad, int tile, const int32_t* total,
   }
 }
 
-// Sorts work[0 .. n_pad) ascending, loading it from (hi,) lo (and valid).
+// Sorts work[0 .. n_pad) ascending, loading it from (hi,) lo.
 template <typename K>
-void bitonic_sort(const uint32_t* hi, const uint32_t* lo,
-                  const uint8_t* valid, int n, int n_pad, K* work,
-                  cudaStream_t st) {
+void bitonic_sort(const uint32_t* hi, const uint32_t* lo, int n, int n_pad,
+                  K* work, cudaStream_t st) {
   const int tile = n_pad < KeyOf<K>::kTile ? n_pad : KeyOf<K>::kTile;
-  sort_tiles<K><<<n_pad / tile, kThreads, 0, st>>>(hi, lo, valid, n, tile,
-                                                   work);
+  sort_tiles<K><<<n_pad / tile, kThreads, 0, st>>>(hi, lo, n, tile, work);
   merge_all<K>(work, n_pad, tile, nullptr, st);
 }
 
@@ -284,50 +301,61 @@ void bitonic_sort_work(K* work, int n_pad, const int32_t* total,
   merge_all<K>(work, n_pad, tile, total, st);
 }
 
-// Survivor test on the sorted keys: valid and first of its run.
-template <typename K>
-__device__ __forceinline__ bool survives(const K* s, int i) {
-  const K v = s[i];
-  return (v & KeyOf<K>::kInvalid) == 0 && (i == 0 || v != s[i - 1]);
-}
-
-// blocks[b] = survivors among keys [b * kSeg, (b + 1) * kSeg).
-template <typename K>
-__global__ void dedup_count(const K* s, int32_t* blocks) {
-  const int i = blockIdx.x * kSeg + threadIdx.x;
-  const int c = __syncthreads_count(survives(s, i));
-  if (threadIdx.x == 0) blocks[blockIdx.x] = c;
-}
-
-// Inclusive scan of v over the block (blockDim.x a multiple of 32, at
-// most 1024); `warp_sums` is 32 ints of shared memory. Ends synchronised.
-__device__ int block_inclusive_scan(int v, int* warp_sums) {
+// N inclusive scans over the block at once, of v[0 .. N) (blockDim.x a
+// multiple of 32, at most 1024); `sums` is N x 32 ints of shared memory.
+// Ends synchronised.
+template <int N>
+__device__ void block_inclusive_scans(int (&v)[N], int (*sums)[32]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xFFFFFFFFu, v, d);
-    if (lane >= d) v += u;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int u = __shfl_up_sync(0xFFFFFFFFu, v[k], d);
+      if (lane >= d) v[k] += u;
+    }
   }
-  if (lane == 31) warp_sums[warp] = v;
+  if (lane == 31) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) sums[k][warp] = v[k];
+  }
   __syncthreads();
   if (warp == 0) {
     const int n_warps = blockDim.x >> 5;
-    int w = lane < n_warps ? warp_sums[lane] : 0;
+    int w[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) w[k] = lane < n_warps ? sums[k][lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xFFFFFFFFu, w, d);
-      if (lane >= d) w += u;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const int u = __shfl_up_sync(0xFFFFFFFFu, w[k], d);
+        if (lane >= d) w[k] += u;
+      }
     }
-    if (lane < n_warps) warp_sums[lane] = w;
+    if (lane < n_warps) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) sums[k][lane] = w[k];
+    }
   }
   __syncthreads();
-  const int out = v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  if (warp > 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] += sums[k][warp - 1];
+  }
   __syncthreads();
-  return out;
+}
+
+// One inclusive scan over the block; `warp_sums` is 32 ints of shared
+// memory. Ends synchronised.
+__device__ int block_inclusive_scan(int v, int* warp_sums) {
+  int a[1] = {v};
+  block_inclusive_scans<1>(a, reinterpret_cast<int(*)[32]>(warp_sums));
+  return a[0];
 }
 
 // One block: blocks[0 .. n_blocks) -> exclusive offsets; blocks[n_blocks]
 // = total; flags = {min(total, cap), total > cap}.
-__global__ void dedup_scan(int32_t* blocks, int n_blocks, int cap,
+__global__ void count_scan(int32_t* blocks, int n_blocks, int cap,
                            int32_t* flags) {
   __shared__ int warp_sums[32];
   __shared__ int carry;
@@ -350,23 +378,6 @@ __global__ void dedup_scan(int32_t* blocks, int n_blocks, int cap,
   }
 }
 
-// Each survivor goes to out[rank] when rank < cap; out[total .. cap) is
-// the fill key. n_pad >= cap, so the grid covers every output index.
-template <typename K>
-__global__ void dedup_scatter(const K* s, const int32_t* blocks,
-                              int n_blocks, int cap, uint32_t* out_hi,
-                              uint32_t* out_lo) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * kSeg + threadIdx.x;
-  const bool keep = survives(s, i);
-  const int rank = blocks[blockIdx.x] +
-                   block_inclusive_scan(keep ? 1 : 0, warp_sums) -
-                   (keep ? 1 : 0);
-  if (keep && rank < cap) store_key(out_hi, out_lo, rank, s[i]);
-  const int total = blocks[n_blocks];
-  if (i < cap && i >= total) store_key(out_hi, out_lo, i, KeyOf<K>::kFill);
-}
-
 // out = s[0 .. cap); count = min(keys other than the fill key, cap). The
 // keys are sorted and the fill key is the largest, so the other keys are a
 // prefix and exactly one thread sees its end.
@@ -382,6 +393,402 @@ __global__ void compact_finish(const K* s, int n_pad, int cap,
   if (live && (i + 1 == n_pad || s[i + 1] == KeyOf<K>::kFill)) total = i + 1;
   if (i == 0 && !live) total = 0;
   if (total >= 0) *count = total < cap ? total : cap;
+}
+
+// --- the dedup path: live keys, LSD radix sort, fused dedup ------------
+
+constexpr int kDigits = 256;            // 8-bit digits
+constexpr int kRThreads = 256;          // one thread per digit in a pass
+constexpr int kRPer = 8;                // keys per thread
+constexpr int kRTile = kRThreads * kRPer;
+constexpr int kRWarps = kRThreads / 32;
+constexpr int kDedupMaxN = 1 << 21;     // psort.DEDUP_MAX_N
+// A look-back status word: the writer's epoch in bits 28..31 (the digit
+// passes share one array, zeroed once per call, so a word of an earlier
+// pass reads as not yet published), a flag in bits 26..27 (the tile's own
+// count, or the inclusive prefix through it) and the count below.
+constexpr uint32_t kEpochMask = 0xF0000000u;
+constexpr uint32_t kAggregate = 1u << 26;
+constexpr uint32_t kPrefix = 2u << 26;
+constexpr uint32_t kCountMask = (1u << 26) - 1;
+
+// The dedup's int32 scratch: a part zeroed per call (the live count, the
+// load's done counter, one tile ticket per launch after the load, every
+// digit's histogram, the passes' and the finish's status words), then the
+// plan that the load's last block writes (each digit's bucket bases, the
+// buffer each pass reads or -1 for a skipped pass, the buffer the finish
+// reads, the live count).
+struct Layout {
+  int passes, tiles;
+  static constexpr int kLive = 0, kDone = 1, kTicket = 2;
+  __host__ __device__ Layout(int key_bytes, int n)
+      : passes(key_bytes), tiles((n + kRTile - 1) / kRTile) {}
+  __host__ __device__ int hist() const { return kTicket + 16; }
+  __host__ __device__ int status() const { return hist() + passes * kDigits; }
+  __host__ __device__ int status_finish() const {
+    return status() + tiles * kDigits;
+  }
+  __host__ __device__ int zeroed() const { return status_finish() + tiles; }
+  __host__ __device__ int base() const { return zeroed(); }
+  __host__ __device__ int src() const { return base() + passes * kDigits; }
+  __host__ __device__ int live() const { return src() + passes + 1; }
+  __host__ __device__ int words() const { return live() + 1; }
+};
+
+__device__ __forceinline__ uint32_t ld_relaxed(const void* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(void* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Decoupled look-back of tile `tile`'s count c in column `col` of a status
+// array with `cols` columns: publishes c, adds the earlier tiles' counts
+// back to the first published prefix, publishes the inclusive prefix and
+// returns the exclusive one. It reads kLook earlier tiles' words at once
+// and resumes at the first one not yet published. Tiles are taken in
+// ticket order, so every earlier tile is running and publishes without
+// waiting on this one.
+constexpr int kLook = 8;
+__device__ int lookback(uint32_t* status, int cols, int col, int tile,
+                        uint32_t epoch, int c) {
+  uint32_t* mine = status + static_cast<size_t>(tile) * cols + col;
+  if (tile == 0) {
+    st_relaxed(mine, epoch | kPrefix | static_cast<uint32_t>(c));
+    return 0;
+  }
+  st_relaxed(mine, epoch | kAggregate | static_cast<uint32_t>(c));
+  int excl = 0;
+  int b = tile - 1;
+  for (;;) {
+    uint32_t w[kLook];
+#pragma unroll
+    for (int i = 0; i < kLook; ++i) {
+      w[i] = b - i >= 0
+                 ? ld_relaxed(status + static_cast<size_t>(b - i) * cols + col)
+                 : 0u;
+    }
+    bool done = false;
+    int i = 0;
+    for (; i < kLook && !done; ++i) {
+      if ((w[i] & kEpochMask) != epoch) break;  // reread from here
+      excl += static_cast<int>(w[i] & kCountMask);
+      done = (w[i] & kPrefix) != 0;
+    }
+    if (done) break;
+    b -= i;
+  }
+  st_relaxed(mine, epoch | kPrefix | static_cast<uint32_t>(excl + c));
+  return excl;
+}
+
+// Digit p of a key.
+template <typename K>
+__device__ __forceinline__ int digit(K v, int p) {
+  return static_cast<int>((v >> (8 * p)) & 0xFF);
+}
+
+// Launch 1. Folds ~valid into the flag, writes the live keys to live[0 ..
+// total) in any order, adds every digit's histogram of them, fills
+// out[0 .. cap) with the fill key; the last block to finish plans the
+// passes. The grid covers max(n, cap) keys.
+template <typename K>
+__global__ void __launch_bounds__(kRThreads)
+    dedup_load(const uint32_t* hi, const uint32_t* lo, const uint8_t* valid,
+               int n, int cap, Layout L, int32_t* scr, K* live,
+               uint32_t* out_hi, uint32_t* out_lo, int32_t* flags) {
+  constexpr int P = sizeof(K);
+  __shared__ int hist[P * kDigits];
+  __shared__ int sums[P][32];
+  __shared__ int base;
+  __shared__ bool last;
+  __shared__ unsigned one_bucket;  // bit p: digit p has one bucket
+  for (int i = threadIdx.x; i < P * kDigits; i += kRThreads) hist[i] = 0;
+  if (threadIdx.x == 0) one_bucket = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  // All loads first, so that they are in flight together.
+  K v[kRPer];
+  bool live_j[kRPer];
+#pragma unroll
+  for (int j = 0; j < kRPer; ++j) {
+    const int g = blockIdx.x * kRTile + j * kRThreads + threadIdx.x;
+    v[j] = K(0);
+    live_j[j] = false;
+    if (g < n) {
+      v[j] = load_key<K>(hi, lo, g);
+      live_j[j] = valid[g] != 0;
+    }
+    if (g < cap) store_key(out_hi, out_lo, g, KeyOf<K>::kFill);
+  }
+  unsigned mine = 0;  // bit j: key j is live
+#pragma unroll
+  for (int j = 0; j < kRPer; ++j) {
+    const bool ok = live_j[j] && (v[j] & KeyOf<K>::kInvalid) == 0;
+    const unsigned act = __ballot_sync(0xFFFFFFFFu, ok);
+    if (ok) {
+      mine |= 1u << j;
+      // One shared atomic per distinct digit of the warp: the high digits
+      // of a band's keys are mostly equal.
+      for (int p = 0; p < P; ++p) {
+        const int d = digit(v[j], p);
+        const unsigned peers = __match_any_sync(act, d);
+        if (lane == __ffs(peers) - 1) {
+          atomicAdd(&hist[p * kDigits + d], __popc(peers));
+        }
+      }
+    }
+  }
+  const int c = __popc(mine);
+  const int inc = block_inclusive_scan(c, sums[0]);
+  if (threadIdx.x == kRThreads - 1) {
+    base = atomicAdd(&scr[Layout::kLive], inc);
+  }
+  __syncthreads();
+  int o = base + inc - c;
+  for (int j = 0; j < kRPer; ++j) {
+    if ((mine >> j) & 1u) live[o++] = v[j];
+  }
+  for (int i = threadIdx.x; i < P * kDigits; i += kRThreads) {
+    if (hist[i] != 0) atomicAdd(&scr[L.hist() + i], hist[i]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&scr[Layout::kDone], 1) ==
+           static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Every block's counts are in. Thread t is bucket t of every digit.
+  const int total = static_cast<int>(ld_relaxed(&scr[Layout::kLive]));
+  int h[P], e[P];
+  unsigned one = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    h[p] = static_cast<int>(
+        ld_relaxed(&scr[L.hist() + p * kDigits + threadIdx.x]));
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    e[p] = h[p];
+    if (h[p] == total) one |= 1u << p;
+  }
+  if (one != 0) atomicOr(&one_bucket, one);
+  block_inclusive_scans<P>(e, sums);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    scr[L.base() + p * kDigits + threadIdx.x] = e[p] - h[p];
+  }
+  if (threadIdx.x == 0) {
+    int src = 0;
+    for (int p = 0; p < P; ++p) {
+      const bool skip = (one_bucket >> p) & 1u;
+      scr[L.src() + p] = skip ? -1 : src;
+      if (!skip) src ^= 1;
+    }
+    scr[L.src() + P] = src;
+    scr[L.live()] = total;
+    flags[0] = 0;  // the finish overwrites them when a key is live
+    flags[1] = 0;
+  }
+}
+
+// One LSD pass over digit p: buf[src] -> buf[src ^ 1], stable.
+template <typename K>
+__global__ void __launch_bounds__(kRThreads)
+    radix_pass(K* buf0, K* buf1, int p, Layout L, int32_t* scr) {
+  static_assert(kRThreads == kDigits, "one thread per digit");
+  __shared__ int whist[kRWarps][kDigits];
+  __shared__ K keys[kRTile];
+  __shared__ int loc[kDigits];
+  __shared__ int glob[kDigits];
+  __shared__ int warp_sums[32];
+  __shared__ int ticket;
+  const int src = scr[L.src() + p];
+  if (src < 0) return;  // every live key has one digit here
+  if (threadIdx.x == 0) ticket = atomicAdd(&scr[Layout::kTicket + p], 1);
+  const int total = scr[L.live()];
+  const int bucket_base = scr[L.base() + p * kDigits + threadIdx.x];
+  for (int i = threadIdx.x; i < kRWarps * kDigits; i += kRThreads) {
+    (&whist[0][0])[i] = 0;
+  }
+  __syncthreads();
+  const int tile = ticket;
+  const int t0 = tile * kRTile;
+  if (t0 >= total) return;
+  const K* in = src ? buf1 : buf0;
+  K* out = src ? buf0 : buf1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  // Warp w ranks keys t0 + [w * 32 * kRPer, (w + 1) * 32 * kRPer), 32 at a
+  // time in index order: a key's rank among its warp's keys of its digit
+  // is the digit's running count plus its peers in lower lanes.
+  K v[kRPer];
+  int d[kRPer], r[kRPer];
+#pragma unroll
+  for (int j = 0; j < kRPer; ++j) {
+    const int g = t0 + (warp * kRPer + j) * 32 + lane;
+    v[j] = g < total ? in[g] : K(0);
+  }
+#pragma unroll
+  for (int j = 0; j < kRPer; ++j) {
+    const int g = t0 + (warp * kRPer + j) * 32 + lane;
+    const bool ok = g < total;
+    d[j] = ok ? digit(v[j], p) : -1;
+    r[j] = 0;
+    const unsigned act = __ballot_sync(0xFFFFFFFFu, ok);
+    if (ok) {
+      const unsigned peers = __match_any_sync(act, d[j]);
+      const int leader = __ffs(peers) - 1;
+      int before = 0;
+      if (lane == leader) {
+        before = whist[warp][d[j]];
+        whist[warp][d[j]] = before + __popc(peers);
+      }
+      r[j] = __shfl_sync(peers, before, leader) + __popc(peers & below);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // Thread t owns digit t: the warps' exclusive offsets, the tile's count,
+  // its offset in the tile and, by look-back, among the earlier tiles.
+  const int t = threadIdx.x;
+  int count = 0;
+  for (int w = 0; w < kRWarps; ++w) {
+    const int c = whist[w][t];
+    whist[w][t] = count;
+    count += c;
+  }
+  const int inc = block_inclusive_scan(count, warp_sums);
+  loc[t] = inc - count;
+  const int before = lookback(reinterpret_cast<uint32_t*>(scr + L.status()),
+                              kDigits, t, tile,
+                              static_cast<uint32_t>(p + 1) << 28, count);
+  glob[t] = bucket_base + before - loc[t];
+  __syncthreads();
+  for (int j = 0; j < kRPer; ++j) {
+    if (d[j] >= 0) keys[loc[d[j]] + whist[warp][d[j]] + r[j]] = v[j];
+  }
+  __syncthreads();
+  // The tile in digit order: runs of one digit go to consecutive places.
+  const int m = min(kRTile, total - t0);
+  for (int i = threadIdx.x; i < m; i += kRThreads) {
+    const K k = keys[i];
+    out[glob[digit(k, p)] + i] = k;
+  }
+}
+
+// The last launch: first-of-run survivors of the sorted live keys to
+// out[rank] for rank < cap, and the flags.
+template <typename K>
+__global__ void __launch_bounds__(kRThreads)
+    dedup_finish(const K* buf0, const K* buf1, int cap, Layout L,
+                 int32_t* scr, uint32_t* out_hi, uint32_t* out_lo,
+                 int32_t* flags) {
+  constexpr int P = sizeof(K);
+  __shared__ K keys[kRTile + 1];
+  __shared__ int wsum[kRWarps];
+  __shared__ int ticket;
+  __shared__ int prefix;
+  if (threadIdx.x == 0) ticket = atomicAdd(&scr[Layout::kTicket + P], 1);
+  const int total = scr[L.live()];
+  const K* s = scr[L.src() + P] ? buf1 : buf0;
+  __syncthreads();
+  const int tile = ticket;
+  const int t0 = tile * kRTile;
+  if (t0 >= total) return;
+  const int m = min(kRTile, total - t0);
+  // keys[i + 1] = s[t0 + i]; keys[0] is its predecessor, or the fill key
+  // (which no live key equals) before the first.
+#pragma unroll
+  for (int j = 0; j <= kRPer; ++j) {
+    const int i = j * kRThreads + threadIdx.x;
+    if (i <= m) {
+      keys[i] = (tile == 0 && i == 0) ? KeyOf<K>::kFill : s[t0 + i - 1];
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned kept[kRPer];
+  int wc = 0;
+  for (int j = 0; j < kRPer; ++j) {
+    const int i = (warp * kRPer + j) * 32 + lane;
+    kept[j] = __ballot_sync(0xFFFFFFFFu, i < m && keys[i + 1] != keys[i]);
+    wc += __popc(kept[j]);
+  }
+  if (lane == 0) wsum[warp] = wc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kRWarps; ++w) {
+      const int c = wsum[w];
+      wsum[w] = sum;
+      sum += c;
+    }
+    prefix = lookback(reinterpret_cast<uint32_t*>(scr + L.status_finish()),
+                      1, 0, tile, 1u << 28, sum);
+    if (t0 + m == total) {
+      const int all = prefix + sum;
+      flags[0] = all < cap ? all : cap;
+      flags[1] = all > cap ? 1 : 0;
+    }
+  }
+  __syncthreads();
+  int rank = prefix + wsum[warp];
+  for (int j = 0; j < kRPer; ++j) {
+    const int i = (warp * kRPer + j) * 32 + lane;
+    if ((kept[j] >> lane) & 1u) {
+      const int k = rank + __popc(kept[j] & below);
+      if (k < cap) store_key(out_hi, out_lo, k, keys[i + 1]);
+    }
+    rank += __popc(kept[j]);
+  }
+}
+
+// Kernels the dedup path has launched since the library was loaded.
+long long dedup_kernel_launches = 0;
+
+template <typename K>
+int dedup_launch(const void* hi, const void* lo, const void* valid, int n,
+                 int cap, void* work, void* scratch, void* out_hi,
+                 void* out_lo, void* flags, void* stream) {
+  if (n < 1 || n > kDedupMaxN || cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Layout L(sizeof(K), n);
+  int32_t* scr = static_cast<int32_t*>(scratch);
+  K* b0 = static_cast<K*>(work);
+  K* b1 = b0 + n;
+  const cudaError_t e = cudaMemsetAsync(
+      scr, 0, static_cast<size_t>(L.zeroed()) * sizeof(int32_t), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int load_blocks = ((n > cap ? n : cap) + kRTile - 1) / kRTile;
+  dedup_load<K><<<load_blocks, kRThreads, 0, st>>>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+      static_cast<const uint8_t*>(valid), n, cap, L, scr, b0,
+      static_cast<uint32_t*>(out_hi), static_cast<uint32_t*>(out_lo),
+      static_cast<int32_t*>(flags));
+  ++dedup_kernel_launches;
+  for (int p = 0; p < static_cast<int>(sizeof(K)); ++p) {
+    radix_pass<K><<<L.tiles, kRThreads, 0, st>>>(b0, b1, p, L, scr);
+    ++dedup_kernel_launches;
+  }
+  dedup_finish<K><<<L.tiles, kRThreads, 0, st>>>(
+      b0, b1, cap, L, scr, static_cast<uint32_t*>(out_hi),
+      static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(flags));
+  ++dedup_kernel_launches;
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --- dominance dedups ---------------------------------------------------
@@ -555,7 +962,7 @@ int dom_finish(E* e0, E* e1, int n_pad, int cap, int chain, int rounds,
     dom_prune<E><<<grid, kThreads, 0, st>>>(e0, n_pad, chain,
                                             r > 0 ? total : nullptr, keep);
     flag_count<<<n_blocks, kSeg, 0, st>>>(keep, blocks);
-    dedup_scan<<<1, kThreads, 0, st>>>(blocks, n_blocks, cap, flags);
+    count_scan<<<1, kThreads, 0, st>>>(blocks, n_blocks, cap, flags);
   }
   dom_full<E><<<n_blocks, kSeg, 0, st>>>(e0, keep, blocks, n_blocks, cmask,
                                          rmask, full);
@@ -571,27 +978,6 @@ bool bad_sizes(int n, int n_pad, int cap) {
 }
 
 template <typename K>
-int dedup_launch(const void* hi, const void* lo, const void* valid, int n,
-                 int n_pad, int cap, void* work, void* blocks, void* out_hi,
-                 void* out_lo, void* flags, void* stream) {
-  if (bad_sizes(n, n_pad, cap)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  K* w = static_cast<K*>(work);
-  int32_t* bl = static_cast<int32_t*>(blocks);
-  const int n_blocks = n_pad / kSeg;
-  bitonic_sort<K>(static_cast<const uint32_t*>(hi),
-                  static_cast<const uint32_t*>(lo),
-                  static_cast<const uint8_t*>(valid), n, n_pad, w, st);
-  dedup_count<K><<<n_blocks, kSeg, 0, st>>>(w, bl);
-  dedup_scan<<<1, kThreads, 0, st>>>(bl, n_blocks, cap,
-                                     static_cast<int32_t*>(flags));
-  dedup_scatter<K><<<n_blocks, kSeg, 0, st>>>(
-      w, bl, n_blocks, cap, static_cast<uint32_t*>(out_hi),
-      static_cast<uint32_t*>(out_lo));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename K>
 int compact_launch(const void* hi, const void* lo, int n, int n_pad, int cap,
                    void* work, void* out_hi, void* out_lo, void* count,
                    void* stream) {
@@ -599,7 +985,7 @@ int compact_launch(const void* hi, const void* lo, int n, int n_pad, int cap,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   K* w = static_cast<K*>(work);
   bitonic_sort<K>(static_cast<const uint32_t*>(hi),
-                  static_cast<const uint32_t*>(lo), nullptr, n, n_pad, w, st);
+                  static_cast<const uint32_t*>(lo), n, n_pad, w, st);
   compact_finish<K><<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       w, n_pad, cap, static_cast<uint32_t*>(out_hi),
       static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(count));
@@ -663,14 +1049,23 @@ int psort_dedup2_dom_launch(const void* a_hi, const void* a_lo,
       static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(flags), st);
 }
 
-// Device pointers: key u32[n], valid u8[n] (torch bool), work u32[n_pad],
-// blocks i32[n_pad / 1024 + 1], out u32[cap], flags i32[2]. Returns the
-// cudaError_t of the launches (0 on success).
-int psort_dedup_launch(const void* key, const void* valid, int n, int n_pad,
-                       int cap, void* work, void* blocks, void* out,
-                       void* flags, void* stream) {
-  return dedup_launch<uint32_t>(nullptr, key, valid, n, n_pad, cap, work,
-                                blocks, nullptr, out, flags, stream);
+// int32 words of the dedup's scratch for n keys of key_bytes (4 or 8).
+int psort_dedup_scratch_words(int n, int key_bytes) {
+  return Layout(key_bytes, n).words();
+}
+
+// Kernels launched by psort_dedup_launch and psort_dedup2_launch since
+// the library was loaded: 2 + key bytes a call.
+long long psort_dedup_kernel_launches() { return dedup_kernel_launches; }
+
+// Device pointers: key u32[n], valid u8[n] (torch bool), work u32[2 n],
+// scratch i32[psort_dedup_scratch_words(n, 4)], out u32[cap], flags
+// i32[2]. Returns the cudaError_t of the launches (0 on success).
+int psort_dedup_launch(const void* key, const void* valid, int n, int cap,
+                       void* work, void* scratch, void* out, void* flags,
+                       void* stream) {
+  return dedup_launch<uint32_t>(nullptr, key, valid, n, cap, work, scratch,
+                                nullptr, out, flags, stream);
 }
 
 // Device pointers: keys u32[n], work u32[n_pad], out u32[cap],
@@ -681,14 +1076,15 @@ int psort_compact_launch(const void* keys, int n, int n_pad, int cap,
                                   out, count, stream);
 }
 
-// Pairs. Device pointers: hi, lo u32[n], valid u8[n], work u64[n_pad],
-// blocks i32[n_pad / 1024 + 1], out_hi, out_lo u32[cap], flags i32[2].
+// Pairs. Device pointers: hi, lo u32[n], valid u8[n], work u64[2 n],
+// scratch i32[psort_dedup_scratch_words(n, 8)], out_hi, out_lo u32[cap],
+// flags i32[2].
 int psort_dedup2_launch(const void* hi, const void* lo, const void* valid,
-                        int n, int n_pad, int cap, void* work, void* blocks,
+                        int n, int cap, void* work, void* scratch,
                         void* out_hi, void* out_lo, void* flags,
                         void* stream) {
-  return dedup_launch<uint64_t>(hi, lo, valid, n, n_pad, cap, work, blocks,
-                                out_hi, out_lo, flags, stream);
+  return dedup_launch<uint64_t>(hi, lo, valid, n, cap, work, scratch, out_hi,
+                                out_lo, flags, stream);
 }
 
 // Pairs. Device pointers: hi, lo u32[n], work u64[n_pad], out_hi, out_lo

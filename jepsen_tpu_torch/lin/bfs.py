@@ -112,20 +112,20 @@ ANALYZER = "gpu-bfs"
 def _dedup_keys(key, valid, cap):
     """Single-u32-key sort-dedup (invalid flag in bit 31), survivors
     ascending with KEY_FILL padding. Within
-    :func:`jepsen_tpu_torch.lin.psort.available` it is
+    :func:`jepsen_tpu_torch.lin.psort.dedup_available` it is
     :func:`jepsen_tpu_torch.lin.psort.dedup_keys` (the kernel on the
     card); above it :func:`_dedup_keys_sort`, as the reference takes
     lax.sort there. Returns (keys[cap], count, overflow) as tensors."""
-    if psort.available(key.numel()):
+    if psort.dedup_available(key.numel()):
         return psort.dedup_keys(key, valid, cap)
     return _dedup_keys_sort(key, valid, cap)
 
 
 def _dedup_keys_sort(key, valid, cap):
     """The reference's lax.sort dedup in torch.sort, for candidate spaces
-    past the kernels' size gate (spike caps 524288 and 1048576): sort the
-    flag-folded keys, turn the invalid and repeated ones into KEY_FILL,
-    and sort again to pack the survivors."""
+    past the dedup kernels' size gate: sort the flag-folded keys, turn
+    the invalid and repeated ones into KEY_FILL, and sort again to pack
+    the survivors."""
     n = key.numel()
     w = _u32.widen(key) | ((~valid).to(torch.int64) << 31)
     s, _ = torch.sort(w)
@@ -141,9 +141,9 @@ def _dedup_keys2(hi, lo, valid, cap):
     """Pair-key twin of :func:`_dedup_keys` for 64-bit configs (hi, lo
     raw int32 words, order ``hi << 32 | lo``, the invalid flag in hi's bit
     31): :func:`jepsen_tpu_torch.lin.psort.dedup_keys2` within the
-    kernels' size gate, :func:`_dedup_keys2_sort` above it. Returns
+    dedup kernels' size gate, :func:`_dedup_keys2_sort` above it. Returns
     (hi[cap], lo[cap], count, overflow) as tensors."""
-    if psort.available(lo.numel()):
+    if psort.dedup_available(lo.numel()):
         return psort.dedup_keys2(hi, lo, valid, cap)
     return _dedup_keys2_sort(hi, lo, valid, cap)
 

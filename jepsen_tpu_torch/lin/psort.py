@@ -37,7 +37,13 @@ import torch
 from jepsen_tpu_torch import _u32
 
 MIN_N = 1024              # smallest kernel size (the TPU's tiling minimum)
-PSORT_MAX_N = 1 << 19     # the reference's size gate, kept until measured
+# The compaction kernels' size gate: the reference's, kept until measured.
+PSORT_MAX_N = 1 << 19
+# The dedup kernels' size gate, set on the H100 (chip_smoke.py phases 10
+# and 14): the radix kernel against the engine's torch.sort twin
+# (bfs._dedup_keys_sort / _dedup_keys2_sort) at n = 2^19, 2^20 and 2^21.
+# It is also the kernels' limit (kDedupMaxN in psort.cu).
+DEDUP_MAX_N = 1 << 21
 KEY_FILL = 0xFFFFFFFF     # pad beyond count; sorts after any config
 KEY_FILL_RAW = -1         # KEY_FILL as the int32 that carries its bits
 _INVALID = 1 << 31
@@ -80,9 +86,17 @@ def dom_window(n: int, force: bool = False) -> tuple:
 
 
 def available(n: int) -> bool:
-    """Size gate: the kernels take n-element inputs up to
-    :data:`PSORT_MAX_N` (padded); larger ones take the torch.sort path."""
+    """Size gate of the compactions: the kernels take n-element inputs up
+    to :data:`PSORT_MAX_N` (padded); larger ones take the torch.sort
+    path."""
     return pad_size(n) <= PSORT_MAX_N
+
+
+def dedup_available(n: int) -> bool:
+    """Size gate of the dedups: the engine sends n-element dedups up to
+    :data:`DEDUP_MAX_N` (padded) to :func:`dedup_keys` /
+    :func:`dedup_keys2`, larger ones to its torch.sort twins."""
+    return pad_size(n) <= DEDUP_MAX_N
 
 
 def _check(keys: torch.Tensor, cap: int, what: str) -> None:
@@ -97,11 +111,11 @@ def _check(keys: torch.Tensor, cap: int, what: str) -> None:
                          f"< cap {cap}")
 
 
-def _kernel_args(keys: torch.Tensor, what: str) -> None:
+def _kernel_args(keys: torch.Tensor, what: str, max_n: int) -> None:
     if keys.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {keys.device}")
-    if not available(keys.numel()):
-        raise ValueError(f"{what} kernel takes at most {PSORT_MAX_N} keys "
+    if pad_size(keys.numel()) > max_n:
+        raise ValueError(f"{what} kernel takes at most {max_n} keys "
                          f"padded, got {keys.numel()}")
     if not keys.is_contiguous():
         raise ValueError(f"{what} needs contiguous tensors")
@@ -120,12 +134,12 @@ def dedup_keys(key: torch.Tensor, valid: torch.Tensor, cap: int):
                          "and device")
     if key.device.type == "cpu":
         return dedup_keys_plain(key, valid, cap)
-    _kernel_args(key, "dedup_keys")
+    _kernel_args(key, "dedup_keys", DEDUP_MAX_N)
     if not valid.is_contiguous():
         raise ValueError("dedup_keys needs contiguous tensors")
     from jepsen_tpu_torch.lin import psort_cuda
 
-    out, flags = psort_cuda.dedup(key, valid, cap, pad_size(key.numel()))
+    out, flags = psort_cuda.dedup(key, valid, cap)
     LAUNCHES["dedup_keys"] += 1
     return out, flags[0], flags[1] != 0
 
@@ -159,7 +173,7 @@ def compact_keys(keys: torch.Tensor, cap: int):
     _check(keys, cap, "compact_keys")
     if keys.device.type == "cpu":
         return compact_keys_plain(keys, cap)
-    _kernel_args(keys, "compact_keys")
+    _kernel_args(keys, "compact_keys", PSORT_MAX_N)
     from jepsen_tpu_torch.lin import psort_cuda
 
     out, count = psort_cuda.compact(keys, cap, pad_size(keys.numel()))
@@ -191,8 +205,8 @@ def _check2(hi: torch.Tensor, lo: torch.Tensor, cap: int, what: str) -> None:
                          "and device")
 
 
-def _pair_kernel_args(hi, lo, what: str) -> None:
-    _kernel_args(lo, what)
+def _pair_kernel_args(hi, lo, what: str, max_n: int) -> None:
+    _kernel_args(lo, what, max_n)
     if not hi.is_contiguous():
         raise ValueError(f"{what} needs contiguous tensors")
 
@@ -211,13 +225,12 @@ def dedup_keys2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
                          "shape and device")
     if lo.device.type == "cpu":
         return dedup_keys2_plain(hi, lo, valid, cap)
-    _pair_kernel_args(hi, lo, "dedup_keys2")
+    _pair_kernel_args(hi, lo, "dedup_keys2", DEDUP_MAX_N)
     if not valid.is_contiguous():
         raise ValueError("dedup_keys2 needs contiguous tensors")
     from jepsen_tpu_torch.lin import psort_cuda
 
-    out_hi, out_lo, flags = psort_cuda.dedup2(hi, lo, valid, cap,
-                                              pad_size(lo.numel()))
+    out_hi, out_lo, flags = psort_cuda.dedup2(hi, lo, valid, cap)
     LAUNCHES["dedup_keys2"] += 1
     return out_hi, out_lo, flags[0], flags[1] != 0
 
@@ -253,7 +266,7 @@ def compact_keys2(hi: torch.Tensor, lo: torch.Tensor, cap: int):
     _check2(hi, lo, cap, "compact_keys2")
     if lo.device.type == "cpu":
         return compact_keys2_plain(hi, lo, cap)
-    _pair_kernel_args(hi, lo, "compact_keys2")
+    _pair_kernel_args(hi, lo, "compact_keys2", PSORT_MAX_N)
     from jepsen_tpu_torch.lin import psort_cuda
 
     out_hi, out_lo, count = psort_cuda.compact2(hi, lo, cap,

@@ -9,7 +9,9 @@ The functions here take CUDA tensors that the wrappers in
 scratch, and launch on the current stream. They do not synchronise.
 Keys are raw int32 tensors read as ``uint32_t``
 (:mod:`jepsen_tpu_torch._u32`); the pair kernels sort ``uint64_t`` keys
-``hi << 32 | lo`` in an int64 scratch buffer.
+``hi << 32 | lo`` in an int64 scratch buffer. The dedups' int32 scratch
+(look-back status words, histograms, tickets and the pass plan) is sized
+by the library itself (``psort_dedup_scratch_words``).
 """
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ def _load():
     if _lib is None:
         lib = _build.load("psort")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.psort_dedup_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
+        lib.psort_dedup_scratch_words.argtypes = [i, i]
+        lib.psort_dedup_scratch_words.restype = i
+        lib.psort_dedup_kernel_launches.argtypes = []
+        lib.psort_dedup_kernel_launches.restype = ctypes.c_longlong
+        lib.psort_dedup_launch.argtypes = [p, p, i, i, p, p, p, p, p]
         lib.psort_dedup_launch.restype = i
         lib.psort_compact_launch.argtypes = [p, i, i, i, p, p, p, p]
         lib.psort_compact_launch.restype = i
-        lib.psort_dedup2_launch.argtypes = [p, p, p, i, i, i, p, p, p, p,
-                                            p, p]
+        lib.psort_dedup2_launch.argtypes = [p, p, p, i, i, p, p, p, p, p,
+                                            p]
         lib.psort_dedup2_launch.restype = i
         lib.psort_compact2_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
         lib.psort_compact2_launch.restype = i
@@ -53,28 +59,44 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(rc: int, what: str, n: int, n_pad: int, cap: int) -> None:
+def _raise_on(rc: int, what: str, **sizes) -> None:
     if rc != 0:
+        shape = ", ".join(f"{k}={v}" for k, v in sizes.items())
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
-                           f"(n={n}, n_pad={n_pad}, cap={cap})")
+                           f"({shape})")
 
 
-def dedup(key: torch.Tensor, valid: torch.Tensor, cap: int, n_pad: int):
-    """Launch the sort-dedup. Returns (keys int32[cap], flags int32[2] =
-    (count, overflow)) on the keys' device."""
+def dedup_kernel_launches() -> int:
+    """Kernels the radix dedups have launched since the library was
+    loaded: 2 + key bytes a call (the load, one pass per 8-bit digit and
+    the finish)."""
+    return int(_load().psort_dedup_kernel_launches())
+
+
+def _dedup_scratch(lib, n: int, key_bytes: int, dev):
+    """The radix dedup's scratch: two key buffers of n keys (int32 words
+    for single keys, int64 for pairs) and its int32 status words."""
+    dtype = torch.int32 if key_bytes == 4 else torch.int64
+    return (torch.empty(2 * n, dtype=dtype, device=dev),
+            torch.empty(lib.psort_dedup_scratch_words(n, key_bytes),
+                        dtype=torch.int32, device=dev))
+
+
+def dedup(key: torch.Tensor, valid: torch.Tensor, cap: int):
+    """Launch the radix sort-dedup. Returns (keys int32[cap], flags
+    int32[2] = (count, overflow)) on the keys' device."""
     lib = _load()
     n = key.numel()
     dev = key.device
-    work = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    blocks = torch.empty(n_pad // 1024 + 1, dtype=torch.int32, device=dev)
+    work, scratch = _dedup_scratch(lib, n, 4, dev)
     out = torch.empty(cap, dtype=torch.int32, device=dev)
     flags = torch.empty(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.psort_dedup_launch(
-            key.data_ptr(), valid.data_ptr(), n, n_pad, cap,
-            work.data_ptr(), blocks.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), _stream(key))
-    _raise_on(rc, "psort dedup_keys", n, n_pad, cap)
+            key.data_ptr(), valid.data_ptr(), n, cap, work.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), flags.data_ptr(),
+            _stream(key))
+    _raise_on(rc, "psort dedup_keys", n=n, cap=cap)
     return out, flags
 
 
@@ -91,28 +113,27 @@ def compact(keys: torch.Tensor, cap: int, n_pad: int):
         rc = lib.psort_compact_launch(
             keys.data_ptr(), n, n_pad, cap, work.data_ptr(),
             out.data_ptr(), count.data_ptr(), _stream(keys))
-    _raise_on(rc, "psort compact_keys", n, n_pad, cap)
+    _raise_on(rc, "psort compact_keys", n=n, n_pad=n_pad, cap=cap)
     return out, count
 
 
 def dedup2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
-           cap: int, n_pad: int):
-    """Launch the pair sort-dedup. Returns (hi int32[cap], lo int32[cap],
-    flags int32[2] = (count, overflow)) on the keys' device."""
+           cap: int):
+    """Launch the pair radix sort-dedup. Returns (hi int32[cap], lo
+    int32[cap], flags int32[2] = (count, overflow)) on the keys' device."""
     lib = _load()
     n = lo.numel()
     dev = lo.device
-    work = torch.empty(n_pad, dtype=torch.int64, device=dev)
-    blocks = torch.empty(n_pad // 1024 + 1, dtype=torch.int32, device=dev)
+    work, scratch = _dedup_scratch(lib, n, 8, dev)
     out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
     out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
     flags = torch.empty(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.psort_dedup2_launch(
-            hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n, n_pad, cap,
-            work.data_ptr(), blocks.data_ptr(), out_hi.data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), n, cap,
+            work.data_ptr(), scratch.data_ptr(), out_hi.data_ptr(),
             out_lo.data_ptr(), flags.data_ptr(), _stream(lo))
-    _raise_on(rc, "psort dedup_keys2", n, n_pad, cap)
+    _raise_on(rc, "psort dedup_keys2", n=n, cap=cap)
     return out_hi, out_lo, flags
 
 
@@ -131,7 +152,7 @@ def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
             hi.data_ptr(), lo.data_ptr(), n, n_pad, cap, work.data_ptr(),
             out_hi.data_ptr(), out_lo.data_ptr(), count.data_ptr(),
             _stream(lo))
-    _raise_on(rc, "psort compact_keys2", n, n_pad, cap)
+    _raise_on(rc, "psort compact_keys2", n=n, n_pad=n_pad, cap=cap)
     return out_hi, out_lo, count
 
 
@@ -162,7 +183,7 @@ def dedup_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
             rmask & 0xFFFFFFFF, n, n_pad, cap, chain, rounds, e0.data_ptr(),
             e1.data_ptr(), keep.data_ptr(), blocks.data_ptr(),
             full.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream(a))
-    _raise_on(rc, "psort dedup_keys_dom", n, n_pad, cap)
+    _raise_on(rc, "psort dedup_keys_dom", n=n, n_pad=n_pad, cap=cap)
     return out, flags
 
 
@@ -189,5 +210,5 @@ def dedup2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,
             e1.data_ptr(), keep.data_ptr(), blocks.data_ptr(),
             full.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(),
             flags.data_ptr(), _stream(a_lo))
-    _raise_on(rc, "psort dedup_keys2_dom", n, n_pad, cap)
+    _raise_on(rc, "psort dedup_keys2_dom", n=n, n_pad=n_pad, cap=cap)
     return out_hi, out_lo, flags

@@ -102,15 +102,16 @@ def test_engine_matches_jax(engine_runs, name):
                                   "pair-valid-spike"])
 def test_engine_past_the_kernel_gate_matches_jax(engine_runs, monkeypatch,
                                                  name):
-    """With the sort kernels gated off, as past PSORT_MAX_N at the top
-    spike caps, every dedup and compaction takes the torch.sort twins of
-    the reference's lax.sort path, and the verdict is unchanged."""
+    """With the sort kernels gated off (as past PSORT_MAX_N and
+    DEDUP_MAX_N), every dedup and compaction takes the torch.sort twins
+    of the reference's lax.sort path, and the verdict is unchanged."""
     from jepsen_tpu_torch.lin import psort as tpsort
 
     pj, _, rj, _ = engine_runs[name]
     _, pt = _packed(*CASES[name][0])
     _, caps, spike = CASES[name]
     monkeypatch.setattr(tpsort, "available", lambda n: False)
+    monkeypatch.setattr(tpsort, "dedup_available", lambda n: False)
     rt = tbfs.check_packed(pt, cap_schedule=caps, spike_caps=spike,
                            device="cpu")
     assert {k: rt.get(k) for k in KEYS} == {k: rj.get(k) for k in KEYS}

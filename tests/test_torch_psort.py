@@ -183,6 +183,98 @@ def test_wrappers_run_plain_on_the_cpu_and_check_their_contract():
     assert tpsort.pad_size(1500) == 2048 and tpsort.pad_size(10) == 1024
 
 
+# --- the dedups at the spike tiers' sizes ---------------------------------
+
+SPIKE_N, SPIKE_CAP = 1 << 20, 1 << 19
+
+
+def _spike_inputs(pair: bool, overflow: bool):
+    """Seeded dedup inputs at n = 2^20, as a spike tier's candidates: about
+    half valid, heavily duplicated, keys using bit 30 (pairs: hi's bit 30
+    and lo's bit 31 as payload); more distinct valid keys than the cap
+    when ``overflow``."""
+    rng = np.random.default_rng(101 + 2 * pair + overflow)
+    n = SPIKE_N
+    pool = rng.integers(0, 1 << 31, (3 * n) // 2 if overflow else n // 4,
+                        dtype=np.uint64).astype(np.uint32)
+    lo = rng.choice(pool, n)
+    valid = rng.random(n) < (0.9 if overflow else 0.5)
+    if not pair:
+        return (lo & np.uint32(0x7FFFFFFF),), valid
+    hi = (lo >> np.uint32(24)) | (lo << np.uint32(6) & np.uint32(1 << 30))
+    return (hi.astype(np.uint32), lo | np.uint32(1 << 31) * (lo & 1)), valid
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["single", "pair"])
+@pytest.mark.parametrize("overflow", [False, True],
+                         ids=["fits", "overflows"])
+def test_dedup_plain_matches_sort_twin_and_lax_at_spike_size(pair, overflow):
+    """At n = 2^20, cap 524288 (spike tier 524288): the plain dedup equals
+    the engine's torch.sort twin and the reference's lax path
+    (``use_psort=False``) bit for bit. The reference returns
+    keys[:min(n, cap)]: its first ``count`` keys and the fill after."""
+    words, valid = _spike_inputs(pair, overflow)
+    tv = torch.from_numpy(valid)
+    tw = tuple(_t(w) for w in words)
+    if pair:
+        plain = tpsort.dedup_keys2_plain(*tw, tv, SPIKE_CAP)
+        twin = tbfs._dedup_keys2_sort(*tw, tv, SPIKE_CAP)
+        ref = jbfs._dedup_keys2(*(jnp.asarray(w) for w in words),
+                                jnp.asarray(valid), SPIKE_CAP,
+                                use_psort=False)
+    else:
+        plain = tpsort.dedup_keys_plain(*tw, tv, SPIKE_CAP)
+        twin = tbfs._dedup_keys_sort(*tw, tv, SPIKE_CAP)
+        ref = jbfs._dedup_keys(jnp.asarray(words[0]), jnp.asarray(valid),
+                               SPIKE_CAP, use_psort=False)
+    assert all(torch.equal(a, b) for a, b in zip(plain, twin))
+    count, ovf = int(ref[-2]), bool(ref[-1])
+    assert (int(plain[-2]), bool(plain[-1])) == (count, ovf)
+    assert ovf == overflow and count > SPIKE_CAP // 8
+    for got, want in zip(plain[:-2], ref[:-2]):
+        got, want = _np(got), np.asarray(want)
+        assert np.array_equal(got[:count], want[:count])
+        assert (got[count:] == FILL).all() and (want[count:] == FILL).all()
+    if pair:
+        live_hi = _np(plain[0])[:count]
+        assert (live_hi >> 30 & 1).any() and (_np(plain[1])[:count] >> 31).any()
+    else:
+        assert (_np(plain[0])[:count] >> 30 & 1).any()
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["single", "pair"])
+def test_dedup_routing_on_both_sides_of_the_gate(monkeypatch, pair):
+    """bfs._dedup_keys / _dedup_keys2 send n up to psort.DEDUP_MAX_N to the
+    dedup wrapper (the kernel on the card, its plain version here) and
+    larger n to the torch.sort twin, with the same result on both
+    sides."""
+    gate = tpsort.DEDUP_MAX_N
+    assert tpsort.dedup_available(gate)
+    assert not tpsort.dedup_available(gate + 1)
+    assert tpsort.available(tpsort.PSORT_MAX_N) \
+        and not tpsort.dedup_available(2 * gate)
+    calls = []
+    name = "dedup_keys2" if pair else "dedup_keys"
+    wrapper = getattr(tpsort, name)
+    twin_name = "_dedup_keys2_sort" if pair else "_dedup_keys_sort"
+    twin = getattr(tbfs, twin_name)
+    monkeypatch.setattr(tpsort, name,
+                        lambda *a: calls.append("kernel") or wrapper(*a))
+    monkeypatch.setattr(tbfs, twin_name,
+                        lambda *a: calls.append("sort") or twin(*a))
+    route = tbfs._dedup_keys2 if pair else tbfs._dedup_keys
+    plain = tpsort.dedup_keys2_plain if pair else tpsort.dedup_keys_plain
+    rng = np.random.default_rng(7 + pair)
+    for n in (gate, gate + 1):
+        keys = rng.integers(0, 1 << 20, n).astype(np.uint32)
+        args = ((_t(keys >> np.uint32(12)),) if pair else ()) \
+            + (_t(keys), torch.from_numpy(rng.random(n) < 0.5), 1 << 14)
+        got = route(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain(*args)))
+        assert bool(got[-1])                    # overflowing cap 2^14
+    assert calls == ["kernel", "sort"]
+
+
 # --- the fused fixpoint ---------------------------------------------------
 
 
