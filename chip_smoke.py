@@ -29,7 +29,10 @@ raises on a failure:
    ``compact_keys`` at n = 2^10 ... 2^19 and 1,500 (sorted-with-holes
    and arbitrary inputs), and ``fixpoint``
    on the sparse headline's own rows and frontiers at every row tier its
-   gate admits, converged, at ``it_max=1`` and overflowing;
+   gate admits, converged, at ``it_max=1`` and overflowing, and on an
+   entry whose every column is legal for every key (the worst case), an
+   empty entry and keys one bit apart in bit 30; each of its sort paths
+   (shared memory, device memory) must run;
 8. the sparse headline: a 20k-op, concurrency-24 CAS-register history
    (window 24) through ``checker.linearizable(algorithm="gpu")``, which
    must say valid by ``gpu-bfs`` with every sparse kernel launched and
@@ -41,7 +44,10 @@ raises on a failure:
    invalid on the same op and dead row, with final paths from the GPU;
 10. each sparse kernel's time, its plain version's and one PyTorch
     call's (``torch.unique``, ``torch.sort``) at the headline's most
-    frequent shapes, with its bound; and ``dedup_keys`` at the spike
+    frequent shapes, with its bound; ``fixpoint`` also at every fused
+    tier, and at tier 16,384 (past its gate ``psort_fused.fits``, through
+    the binding) bit-exact and beside the unfused pass chain on the
+    headline's own rows; and ``dedup_keys`` at the spike
     tiers' sizes n = 2^19, 2^20 and 2^21 beside the engine's torch.sort
     twin (``bfs._dedup_keys_sort``) and ``torch.unique``, on the
     headline shape's candidates tiled to each size, with its launches
@@ -56,8 +62,10 @@ raises on a failure:
     all invalid, every pair equal, exactly cap and cap + 1 survivors, one
     pair apart in hi's bit 30 or in lo's bit 31, overflowing caps), and
     ``fixpoint`` in pair
-    mode on the pair headline's own rows at every tier its gate admits
-    (both placements), converged, at ``it_max=1`` and overflowing;
+    mode on the pair headline's own rows at every tier its gate admits,
+    converged, at ``it_max=1``, overflowing, the worst case, empty, and
+    keys one bit apart in hi's bit 30 or lo's bit 31, with both sort
+    paths run;
 12. the pair headline: a 5k-op, concurrency-30 CAS-register history
     (window 29, past one u32 key) through ``checker.linearizable``,
     valid by ``gpu-bfs`` with every pair kernel launched and its known
@@ -66,8 +74,9 @@ raises on a failure:
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
 14. each pair kernel's time beside its plain version, one PyTorch call
-    and its bound, at the pair headline's most frequent shapes, and
-    ``dedup_keys2`` at the spike sizes as in phase 10;
+    and its bound, at the pair headline's most frequent shapes, the pair
+    ``fixpoint`` at every fused tier and at tier 16,384 beside the unfused
+    chain, and ``dedup_keys2`` at the spike sizes as in phase 10;
 15. the dominance dedups of the crash-dom bands vs their plain versions
     on the card, bit-exact: ``dedup_keys_dom`` and ``dedup_keys2_dom`` in
     forced mode at 2 and 6 rounds and unforced, at padded sizes 2^10 ...
@@ -534,10 +543,88 @@ def overfull_frontier(eng, rng, tier: int):
     return lo, hi, k.size
 
 
-def check_fixpoint(eng, fronts) -> tuple[int, list]:
-    """Phase 7b / 11b: fixpoint vs plain on real rows at every tier
-    ``fits`` admits: converged, it_max=1, and a full-tier entry that
-    overflows. Returns (max word error, tiers checked)."""
+def worst_case_entry(eng, rng, tier: int):
+    """A full tier of distinct live keys and column tables under which
+    every column is legal for every key, so that the first pass has
+    ``tier * (1 + M)`` live candidates, the kernel's worst case: keys in
+    the low ``kbits`` bits; column c active, a write, statically useful,
+    with no chain predecessor, its key bit above the keys' bits. Returns
+    (lo, hi or None, count, cols, sats) on the engine's device."""
+    import numpy as np
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import psort_fused as pf
+
+    M, b = eng.M, eng.b
+    kbits = b + tier.bit_length() + 1
+    free = (63 if eng.pair else 31) - kbits
+    k = np.sort(rng.choice(1 << kbits, tier, replace=False)
+                ).astype(np.uint64)
+    cols = np.zeros((pf.N_COL_ROWS, M), np.uint64)
+    for c in range(M):
+        bit = np.uint64(1) << np.uint64(kbits + c % free)
+        for r_lo in (pf.COL_EXP_LO, pf.COL_OR_LO):
+            cols[r_lo, c] = bit & np.uint64(FILL)
+            cols[r_lo + 1, c] = bit >> np.uint64(32)
+        cols[pf.COL_FLAGS, c] = pf.FLAG_ACT | pf.FLAG_WRITE | pf.FLAG_JIT
+    lo = _u32.bitmap_from_numpy(k.astype(np.uint32), eng.dev)
+    hi = _u32.bitmap_from_numpy((k >> np.uint64(32)).astype(np.uint32),
+                                eng.dev) if eng.pair else None
+    sats = np.zeros((2, 1 << b), np.uint32)
+    return (lo, hi, tier, _u32.bitmap_from_numpy(cols.astype(np.uint32),
+                                                  eng.dev),
+            _u32.bitmap_from_numpy(sats, eng.dev))
+
+
+def bits_apart_entry(eng, lo, hi, count: int, tier: int):
+    """The live keys of an entry frontier with copies one bit apart in the
+    top key bits: pairs with hi's bit 30 flipped and with lo's bit 31
+    flipped (a payload bit), single keys with bit 30 flipped. Returns
+    (lo, hi or None, count) at ``tier``, sorted, KEY_FILL after."""
+    import numpy as np
+
+    from jepsen_tpu_torch import _u32
+
+    k = _u32.bitmap_to_numpy(lo[:count]).astype(np.uint64)
+    if eng.pair:
+        k |= _u32.bitmap_to_numpy(hi[:count]).astype(np.uint64) << \
+            np.uint64(32)
+        flips = (np.uint64(1) << np.uint64(62), np.uint64(1) << np.uint64(31))
+    else:
+        flips = (np.uint64(1) << np.uint64(30),)
+    k = np.unique(np.concatenate([k] + [k ^ f for f in flips]))[:tier]
+    full = np.full(tier, (1 << 64) - 1 if eng.pair else FILL, np.uint64)
+    full[:k.size] = k
+    lo_t = _u32.bitmap_from_numpy((full & np.uint64(FILL)).astype(np.uint32),
+                                  eng.dev)
+    hi_t = _u32.bitmap_from_numpy((full >> np.uint64(32)).astype(np.uint32),
+                                  eng.dev) if eng.pair else None
+    return lo_t, hi_t, int(k.size)
+
+
+def fixpoint_path(a) -> str:
+    """The sort paths the latest fixpoint launch took, from the word the
+    kernel writes beside its flags ("plain" in a CPU rehearsal)."""
+    from jepsen_tpu_torch.lin import psort_fused_cuda as pfc
+
+    if not a.is_cuda:
+        return "plain"
+    word = int(pfc.last_path)
+    return "+".join(n for n, bit in (("shared", pfc.PATH_SHARED),
+                                     ("device", pfc.PATH_DEVICE))
+                    if word & bit) or "none"
+
+
+def check_fixpoint(eng, fronts) -> tuple[int, list, dict]:
+    """Phase 7b / 11b: fixpoint vs plain at every tier ``fits`` admits:
+    on real rows converged and at it_max=1; a full-tier entry that
+    overflows; an entry whose every column is legal for every key
+    (n_live = tier * (1 + M), the worst case); an empty entry (count 0);
+    keys one bit apart in the top key bits (pairs: hi's bit 30, lo's bit
+    31). On the card each of the kernel's sort paths (shared memory,
+    device memory) must run, the worst case in device memory exactly
+    where tier * (1 + M) exceeds the shared path's capacity. Returns (max
+    word error, tiers checked, {path: runs})."""
     import numpy as np
     import torch
 
@@ -548,7 +635,8 @@ def check_fixpoint(eng, fronts) -> tuple[int, list]:
     max_err = 0
     tiers = [t for t in bfs.ROW_TIERS + bfs.PACKED_CAP_SCHEDULE[-1:]
              if psort_fused.fits(t, eng.M, eng.b)]
-    shared = psort_fused_cuda.shared_max_n(eng.pair)
+    on_card = eng.dev.type == "cuda"
+    shared = psort_fused_cuda.shared_max_n(eng.pair) if on_card else None
     # Passes each recorded row's closure needs, from its smallest tier;
     # each tier takes the row needing most passes among those it holds.
     need = []
@@ -561,6 +649,7 @@ def check_fixpoint(eng, fronts) -> tuple[int, list]:
                                                          count, t)
         need.append(int(psort_fused.fixpoint_flags(
             x, xh, cnt, cols, sats, cap=t, b=eng.b, it_max=it_max)[2][2]))
+    paths = {}
     for tier in tiers:
         i = max((i for i, f in enumerate(fronts) if f[3] * 4 <= tier),
                 key=lambda i: (need[i], fronts[i][3]))
@@ -568,29 +657,49 @@ def check_fixpoint(eng, fronts) -> tuple[int, list]:
         x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, hi,
                                                          count, tier)
         blo, bhi, n_big = overfull_frontier(eng, rng, tier)
-        runs = [("converged", x, xh, cnt, it_max),
-                ("it_max=1", x, xh, cnt, 1),
-                ("overflow", blo, bhi, n_big, it_max)]
+        wlo, whi, wcnt, wcols, wsats = worst_case_entry(eng, rng, tier)
+        elo = torch.full_like(x, psort.KEY_FILL_RAW)
+        ehi = None if xh is None else elo.clone()
+        plo, phi, pcnt = bits_apart_entry(eng, x, xh, cnt, tier)
+        runs = [("converged", x, xh, cnt, it_max, cols, sats),
+                ("it_max=1", x, xh, cnt, 1, cols, sats),
+                ("overflow", blo, bhi, n_big, it_max, cols, sats),
+                ("worst", wlo, whi, wcnt, it_max, wcols, wsats),
+                ("empty", elo, ehi, 0, it_max, cols, sats),
+                ("bits", plo, phi, pcnt, it_max, cols, sats)]
         n_pad = psort.pad_size(tier * (1 + eng.M))
-        for what, a, ah, c, itm in runs:
-            kern = psort_fused.fixpoint_flags(a, ah, c, cols, sats, cap=tier,
+        for what, a, ah, c, itm, cl, st in runs:
+            kern = psort_fused.fixpoint_flags(a, ah, c, cl, st, cap=tier,
                                               b=eng.b, it_max=itm)
-            plain = psort_fused.fixpoint_flags_plain(a, ah, c, cols, sats,
+            path = fixpoint_path(a)
+            plain = psort_fused.fixpoint_flags_plain(a, ah, c, cl, st,
                                                      cap=tier, b=eng.b,
                                                      it_max=itm)
-            torch.cuda.synchronize()
+            if on_card:
+                torch.cuda.synchronize()
             same, err = same_outputs(kern, plain)
             max_err = max(max_err, err)
             conv, ovf, passes, out_cnt = kern[2].tolist()
             log(f"[fixpoint{tag}-vs-plain] tier={tier:6d} n_pad={n_pad:7d} "
-                f"({'shared' if n_pad <= shared else 'device'}) row={r} "
-                f"{what:9s} count {c}->{out_cnt} passes={passes} converged="
-                f"{conv} overflow={ovf} bit_exact={same}")
+                f"row={r} {what:9s} count {c}->{out_cnt} passes={passes} "
+                f"converged={conv} overflow={ovf} path={path} "
+                f"bit_exact={same}")
             if not same:
                 raise AssertionError(f"fixpoint{tag} != plain at tier {tier}"
                                      f" ({what}): flags {kern[2].tolist()} vs"
                                      f" {plain[2].tolist()}, error {err}")
-    return max_err, tiers
+            for p in path.split("+"):
+                paths[p] = paths.get(p, 0) + 1
+            if on_card and what == "worst":
+                want = "device" if tier * (1 + eng.M) > shared else "shared"
+                if path != want:
+                    raise AssertionError(f"fixpoint{tag}: the worst case at "
+                                         f"tier {tier} took the {path} path,"
+                                         f" not {want}")
+    if on_card and not {"shared", "device"} <= paths.keys():
+        raise AssertionError(f"fixpoint{tag}: a sort path never ran: "
+                             f"{paths}")
+    return max_err, tiers, paths
 
 
 # Seconds a spin kernel holds the stream before each timed call: the host
@@ -912,12 +1021,169 @@ def spike_times(eng, cand, cand_hi, valid, pair: bool) -> list:
     return out
 
 
+# The tier past the fused gate (psort_fused.fits admits n_pad <= 2^19; at
+# M 32 tier 16,384 is n_pad 2^20), where phases 10 and 14 time the kernel
+# beside the unfused pass chain on the headline's own rows; and how many
+# of those rows.
+GATE_TIER = 16384
+GATE_ROWS = 8
+
+
+def fixpoint_row(eng, fronts, tier: int):
+    """The fused fixpoint at ``tier`` on the fullest recorded row it
+    holds: (row, entry count, inputs, passes, carried count entering each
+    pass, n_pad)."""
+    from jepsen_tpu_torch.lin import psort, psort_fused
+
+    fr = max((f for f in fronts if f[3] * 4 <= tier),
+             key=lambda f: (f[3], f[0]))
+    x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, *fr, tier)
+    passes = int(psort_fused.fixpoint_flags(
+        x, xh, cnt, cols, sats, cap=tier, b=eng.b, it_max=it_max)[2][2])
+    # The carried count entering each pass, one plain pass at a time.
+    counts, a, ah, c = [], x, xh, cnt
+    for _ in range(passes):
+        counts.append(int(c))
+        a, ah, fl = psort_fused.fixpoint_flags_plain(a, ah, c, cols, sats,
+                                                     cap=tier, b=eng.b,
+                                                     it_max=1)
+        c = fl[3]
+    return (fr[0], fr[3], (x, xh, cnt, cols, sats, it_max), passes, counts,
+            psort.pad_size(tier * (1 + eng.M)))
+
+
+def fixpoint_times(eng, fronts, tiers: dict, pair: bool):
+    """Phase 10a / 14a: the fused fixpoint's time at every tier ``fits``
+    admits, on the fullest recorded row each holds, with its bound; at
+    the headline's most frequent fused tier (the shape of the kernel
+    table's row 6) also its plain version's; then the gate
+    (:func:`fixpoint_gate`). Returns ((ms, plain_ms, library_ms,
+    bound_ms, bound_by, shape) at that tier, extra entries)."""
+    from jepsen_tpu_torch.lin import bfs, psort_fused
+
+    tag = "pair" if pair else "sparse"
+    name = "fixpoint_pair" if pair else "fixpoint"
+    words = 2 if pair else 1
+    fused_tiers = {t: n for t, n in tiers.items()
+                   if psort_fused.fits(t, eng.M, eng.b)}
+    f_tier = max(fused_tiers, key=fused_tiers.get)
+    entry, per_tier = None, []
+    for tier in sorted({t for t in bfs.ROW_TIERS
+                        if psort_fused.fits(t, eng.M, eng.b)} | {f_tier}):
+        r, count, args, passes, counts, n_pad = fixpoint_row(eng, fronts,
+                                                             tier)
+        kw = dict(cap=tier, b=eng.b, it_max=args[-1])
+        ms = time_chunk(
+            lambda: psort_fused.fixpoint_flags(*args[:-1], **kw), 20)
+        path = fixpoint_path(args[0])
+        bound, by = fixpoint_bound(tier, eng.M, eng.b, counts, words)
+        per_tier.append({"tier": tier, "row": r, "count": count,
+                         "passes": passes, "ms": ms, "bound_ms": bound,
+                         "rows_on_headline": tiers.get(tier, 0),
+                         "path": path})
+        line = (f"[{tag}-time] {name} tier={tier} ({tiers.get(tier, 0)} "
+                f"rows) row={r} count={count} passes={passes} n_pad={n_pad} "
+                f"carried counts {counts}: kernel {ms:.4f} ms ({path})")
+        if tier == f_tier:
+            plain = time_chunk(
+                lambda: psort_fused.fixpoint_flags_plain(*args[:-1], **kw),
+                2)
+            entry = (ms, plain, None, bound, by,
+                     {"cap": tier, "M": eng.M, "b": eng.b, "n_pad": n_pad,
+                      "passes": passes})
+            line += f", plain {plain:.3f} ms"
+        log(f"{line}, bound {bound:.6f} ms ({by})"
+            + ("; no PyTorch call computes it" if tier == f_tier else ""))
+    return entry, {"tiers_ms": per_tier,
+                   "gate": fixpoint_gate(eng, fronts, pair)}
+
+
+def fixpoint_gate(eng, fronts, pair: bool) -> dict:
+    """Phase 10b / 14b: the kernel at :data:`GATE_TIER`, past the engine's
+    gate ``psort_fused.fits`` (launched through the binding, whose limit
+    is n_pad 2^21), bit-exact against its plain version, and its time
+    beside the engine's unfused pass chain (``_closure_unfused``, grouped
+    as ``row_at_tier`` groups it there, one fetch a pass) on the same
+    entry frontiers: up to :data:`GATE_ROWS` of the recorded rows that
+    the engine runs at that tier, spread over their counts. A CPU
+    rehearsal times the plain version."""
+    import torch
+
+    from jepsen_tpu_torch.lin import bfs, psort, psort_fused, psort_fused_cuda
+
+    tag = "pair" if pair else "sparse"
+    tier = GATE_TIER
+    band = sorted((f for f in fronts if tier // 4 < f[3] * 4 <= tier),
+                  key=lambda f: (f[3], f[0]))
+    if not band:
+        log(f"[{tag}-gate] no recorded row runs at tier {tier}")
+        return {"tier": tier, "rows": 0}
+    rows = [band[i * len(band) // min(GATE_ROWS, len(band))]
+            for i in range(min(GATE_ROWS, len(band)))]
+    M = eng.M
+    n_pad = psort.pad_size(tier * (1 + M))
+    Mg = max(1, bfs._GROUP_BOUND // tier - 1)
+    G = -(-M // Mg) if Mg < M else 1
+    Mg = min(Mg, M)
+    on_card = eng.dev.type == "cuda"
+    fused_ms = unfused_ms = 0.0
+    same_counts = 0
+    for r, lo, hi, count in rows:
+        x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, r, lo, hi,
+                                                         count, tier)
+        cnt_t = torch.full((1,), cnt, dtype=torch.int32, device=eng.dev)
+
+        def fused(x=x, xh=xh, cnt=cnt, cnt_t=cnt_t, cols=cols, sats=sats,
+                  it_max=it_max):
+            if on_card:
+                return psort_fused_cuda.fixpoint(x, xh, cnt_t, cols, sats,
+                                                 tier, eng.b, n_pad, it_max)
+            return psort_fused._plain(x, xh, cnt, cols, sats, tier, eng.b,
+                                      it_max)
+
+        kern = fused()
+        path = fixpoint_path(x)
+        plain = psort_fused._plain(x, xh, cnt, cols, sats, tier, eng.b,
+                                   it_max)
+        same, err = same_outputs(kern, plain)
+        if not same:
+            raise AssertionError(f"fixpoint at tier {tier} != plain on row "
+                                 f"{r}: flags {kern[2].tolist()} vs "
+                                 f"{plain[2].tolist()}, error {err}")
+        f_ms = time_chunk(fused, 5)
+        r0 = r - r % bfs.CHUNK
+        eng.load_chunk(r0, bfs.CHUNK)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, u_cnt, u_ovf = eng._closure_unfused(x, xh, count, r - r0,
+                                                  tier, G, Mg, it_max)
+        if on_card:
+            torch.cuda.synchronize()
+        u_ms = (time.perf_counter() - t0) * 1e3
+        conv, ovf, passes, f_cnt = kern[2].tolist()
+        same_counts += (not ovf and not u_ovf and f_cnt == u_cnt)
+        fused_ms += f_ms
+        unfused_ms += u_ms
+        log(f"[{tag}-gate] tier={tier} n_pad={n_pad} row={r} count={count}"
+            f": fused {f_ms:.4f} ms ({passes} passes, {path}, count "
+            f"{f_cnt}, overflow={ovf}, bit_exact=True) vs unfused chain "
+            f"{u_ms:.3f} ms (G={G}, count {u_cnt}, overflow={u_ovf})")
+    log(f"[{tag}-gate] tier={tier}: fused {fused_ms:.3f} ms vs unfused "
+        f"{unfused_ms:.3f} ms over {len(rows)} rows ({same_counts} with the "
+        "same closure count)")
+    return {"tier": tier, "rows": len(rows), "fused_ms": fused_ms,
+            "unfused_ms": unfused_ms, "same_counts": same_counts}
+
+
 def shape_times(eng, fronts, stats, pair: bool):
     """Phase 10 / 14: each sparse kernel's time at the headline's most
     frequent shape, its plain version's, one PyTorch call's and its
-    bound; the dedup's at the spike sizes (:func:`spike_times`). Returns
-    ({name: (ms, plain_ms, library_ms, bound_ms, bound_by, shape)}, the
-    dedup's extra entries)."""
+    bound; the fixpoint's at every tier and the gate
+    (:func:`fixpoint_times`), the dedup's at the spike sizes
+    (:func:`spike_times`). Returns ({name: (ms, plain_ms, library_ms,
+    bound_ms, bound_by, shape)}, the fixpoint's and the dedup's extra
+    entries)."""
     import torch
 
     from jepsen_tpu_torch import _u32
@@ -928,36 +1194,8 @@ def shape_times(eng, fronts, stats, pair: bool):
     words = 2 if pair else 1
     out = {}
     tiers = stats["tiers"]
-    fused_tiers = {t: n for t, n in tiers.items()
-                   if psort_fused.fits(t, eng.M, eng.b)}
-    f_tier = max(fused_tiers, key=fused_tiers.get)
-    fr = max((f for f in fronts if f[3] * 4 <= f_tier),
-             key=lambda f: (f[3], f[0]))
-    x, xh, cnt, cols, sats, it_max = fixpoint_inputs(eng, *fr, f_tier)
-    n_pad = psort.pad_size(f_tier * (1 + eng.M))
-    passes = int(psort_fused.fixpoint_flags(
-        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max)[2][2])
-    # The carried count entering each pass, one plain pass at a time.
-    counts, a, ah, c = [], x, xh, cnt
-    for _ in range(passes):
-        counts.append(int(c))
-        a, ah, fl = psort_fused.fixpoint_flags_plain(a, ah, c, cols, sats,
-                                                     cap=f_tier, b=eng.b,
-                                                     it_max=1)
-        c = fl[3]
-    ms = time_chunk(lambda: psort_fused.fixpoint_flags(
-        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 20)
-    plain = time_chunk(lambda: psort_fused.fixpoint_flags_plain(
-        x, xh, cnt, cols, sats, cap=f_tier, b=eng.b, it_max=it_max), 2)
-    bound, by = fixpoint_bound(f_tier, eng.M, eng.b, counts, words)
     name = "fixpoint_pair" if pair else "fixpoint"
-    out[name] = (ms, plain, None, bound, by,
-                 {"cap": f_tier, "M": eng.M, "b": eng.b, "n_pad": n_pad,
-                  "passes": passes})
-    log(f"[{tag}-time] {name} tier={f_tier} ({fused_tiers[f_tier]} rows) "
-        f"row={fr[0]} count={fr[3]} passes={passes} n_pad={n_pad} carried "
-        f"counts {counts}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-        f"{bound:.6f} ms ({by}); no PyTorch call computes it")
+    out[name], fix_extra = fixpoint_times(eng, fronts, tiers, pair)
 
     # compact at the most frequent tier: the row's dropped keys.
     c_tier = max(tiers, key=tiers.get)
@@ -1030,7 +1268,8 @@ def shape_times(eng, fronts, stats, pair: bool):
         f"({by}; {digits} digits vary)")
     extra = {"launches_per_call": launches, "launch_us": us,
              "spike": spike_times(eng, cand, cand_hi, valid, pair)}
-    return out, {name: extra}
+    return out, {name: extra,
+                 "fixpoint_pair" if pair else "fixpoint": fix_extra}
 
 
 SRC = "jepsen_tpu_torch/csrc/"
@@ -1081,7 +1320,7 @@ def sparse_phases(dev) -> list:
     log(f"[fixpoint-vs-plain] frontiers of rows 0..{len(fronts) - 1} in "
         f"{time.perf_counter() - t0:.2f}s, counts up to "
         f"{max(f[3] for f in fronts)}")
-    fix_err, fix_tiers = check_fixpoint(eng, fronts)
+    fix_err, fix_tiers, fix_paths = check_fixpoint(eng, fronts)
 
     # 8. the single-key headline through the user's entry point
     kernels = {"dedup_keys": ("psort", "dedup_keys"),
@@ -1110,7 +1349,8 @@ def sparse_phases(dev) -> list:
     extra = {"dedup_keys": {"sizes": list(DEDUP_SIZES),
                             **dedup_extra["dedup_keys"]},
              "compact_keys": {"sizes": list(COMPACT_SIZES)},
-             "fixpoint": {"tiers": fix_tiers}}
+             "fixpoint": {"tiers": fix_tiers, "paths": fix_paths,
+                          **dedup_extra["fixpoint"]}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
 
 
@@ -1136,7 +1376,7 @@ def pair_phases(dev) -> list:
     log(f"[fixpoint2-vs-plain] frontiers of rows 0..{len(fronts) - 1} in "
         f"{time.perf_counter() - t0:.2f}s, counts up to "
         f"{max(f[3] for f in fronts)}")
-    fix_err, fix_tiers = check_fixpoint(eng, fronts)
+    fix_err, fix_tiers, fix_paths = check_fixpoint(eng, fronts)
 
     # 12. the pair headline through the user's entry point
     kernels = {"dedup_keys2": ("psort", "dedup_keys2"),
@@ -1167,7 +1407,8 @@ def pair_phases(dev) -> list:
     extra = {"dedup_keys2": {"sizes": list(DEDUP_SIZES),
                              **dedup_extra["dedup_keys2"]},
              "compact_keys2": {"sizes": list(COMPACT_SIZES)},
-             "fixpoint_pair": {"tiers": fix_tiers}}
+             "fixpoint_pair": {"tiers": fix_tiers, "paths": fix_paths,
+                               **dedup_extra["fixpoint_pair"]}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
 
 

@@ -106,7 +106,10 @@ def _competition(packed: PackedHistory, cancel=None, device=None,
     from jepsen_tpu_torch.lin import cpu
 
     cpu_kw = {k: v for k, v in kw.items() if k == "witness"}
-    dev_kw = {k: v for k, v in kw.items() if k in ("chunk", "explain")}
+    # The device options the reference's racer gets, as far as the port
+    # takes them (the reference also forwards checkpoint and resume).
+    dev_kw = {k: v for k, v in kw.items()
+              if k in ("chunk", "cap_schedule", "explain")}
     lock = threading.Lock()
     state: dict = {"result": None, "finished": 0}
     done = threading.Event()

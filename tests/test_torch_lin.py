@@ -9,13 +9,18 @@ import torch
 
 from jepsen_tpu import checker as jchecker
 from jepsen_tpu import history as jh
+from jepsen_tpu import lin as jlin
 from jepsen_tpu import models as jm
+from jepsen_tpu.lin import bfs as jbfs
+from jepsen_tpu.lin import cpu as jcpu
 from jepsen_tpu.lin import synth as jsynth
 from jepsen_tpu_torch import checker as tchecker
 from jepsen_tpu_torch import history as th
 from jepsen_tpu_torch import lin as tlin
 from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch import resolve_device
+from jepsen_tpu_torch.lin import bfs as tbfs
+from jepsen_tpu_torch.lin import cpu as tcpu
 from jepsen_tpu_torch.lin import dense as tdense
 from jepsen_tpu_torch.lin import dense_cuda
 from jepsen_tpu_torch.lin import prepare as tprep
@@ -128,6 +133,52 @@ def test_competition_races_and_joins_its_loser():
                               device="cpu").check(None, mt, ht)
     assert r["valid?"] is False and r["final-paths"]
     assert threading.active_count() == before
+
+
+@pytest.mark.parametrize("kw", [dict(cap_schedule=(8,)),
+                                dict(cap_schedule=(8,), chunk=64,
+                                     explain=False)],
+                         ids=["cap_schedule", "all-options"])
+def test_competition_forwards_the_device_options(monkeypatch, kw):
+    """Under "competition" the device racer gets the device options the
+    reference's racer gets (chunk, cap_schedule, explain). Both packages'
+    sparse engines are recorded, not run (at cap 8 the frontier spikes to
+    262,144 and a real run takes minutes on the CPU), and both CPU racers
+    step aside, so each race returns its device racer's result: the
+    analyzer and the top cap it was asked to search at."""
+    kw_h = dict(concurrency=26, seed=1, value_range=5)
+    calls = {}
+
+    def engine(pkg, analyzer, default):
+        def check_packed(packed, cancel=None, **k):
+            calls[pkg] = k
+            return {"valid?": True, "analyzer": analyzer,
+                    "max-cap": tuple(k.get("cap_schedule") or default)[-1]}
+        return check_packed
+
+    def step_aside(packed, **k):
+        return {"valid?": "unknown", "error": "stepped aside"}
+
+    monkeypatch.setattr(tbfs, "check_packed",
+                        engine("torch", "gpu-bfs", tbfs.PACKED_CAP_SCHEDULE))
+    monkeypatch.setattr(jbfs, "check_packed",
+                        engine("jax", "tpu-bfs", jbfs.PACKED_CAP_SCHEDULE))
+    monkeypatch.setattr(tcpu, "check_packed", step_aside)
+    monkeypatch.setattr(jcpu, "check_packed", step_aside)
+    ht = tsynth.generate_register_history(400, **kw_h)
+    assert tprep.prepare(tm.cas_register(), ht).window == 22
+    got = tlin.analysis(tm.cas_register(), ht, algorithm="competition",
+                        device="cpu", **kw)
+    want = jlin.analysis(jm.cas_register(),
+                         jsynth.generate_register_history(400, **kw_h),
+                         algorithm="competition", **kw)
+    dev = calls["torch"].pop("device")
+    assert str(dev) == "cpu"
+    assert calls["torch"] == calls["jax"] == kw
+    assert (got["valid?"], got["analyzer"], got["max-cap"]) == \
+        (True, "gpu-bfs", 8)
+    assert (want["valid?"], want["analyzer"], want["max-cap"]) == \
+        (True, "tpu-bfs", 8)
 
 
 def _wide_window(H, n=21, crash=False):

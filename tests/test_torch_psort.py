@@ -21,6 +21,7 @@ from jepsen_tpu_torch.lin import bfs as tbfs
 from jepsen_tpu_torch.lin import prepare as tprep
 from jepsen_tpu_torch.lin import psort as tpsort
 from jepsen_tpu_torch.lin import psort_fused as tfused
+from jepsen_tpu_torch.lin import psort_fused_cuda as tfused_cuda
 from jepsen_tpu_torch.lin import synth as tsynth
 
 FILL = 0xFFFFFFFF
@@ -416,6 +417,49 @@ def test_fixpoint_wrapper_gates():
     assert not tfused.fits(8, 8, 3) and not tfused.fits(1024, 8, 7)
     assert not tfused.fits(1 << 17, 32, 3)
     assert tfused.max_n() == tpsort.PSORT_MAX_N
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["single", "pair"])
+@pytest.mark.parametrize("M", [16, 32])
+def test_fixpoint_launcher_limits_and_scratch(pair, M):
+    """The launcher takes n_pad up to the reference's clamp 2^21 while the
+    engine's gate ``fits`` stays at PSORT_MAX_N (2^19), in both key
+    modes; the device-memory scratch holds two buffers of the worst-case
+    live count, cap * (1 + M) keys, exactly where that can exceed the
+    shared path's capacity."""
+    assert tfused_cuda.MAX_N == 1 << jfused.FUSED_MAX_EXP
+    fused = [t for t in tbfs.ROW_TIERS if tfused.fits(t, M, 3)]
+    assert fused == ([256, 1024, 4096] if M == 32
+                     else [256, 1024, 4096, 16384])
+    for cap in (256, 1024, 4096, 8192, 16384, 32768, 65536):
+        n_pad = tpsort.pad_size(cap * (1 + M))
+        assert tfused.fits(cap, M, 3) == (n_pad <= tpsort.PSORT_MAX_N)
+        assert tfused_cuda.launchable(cap, M, 3, n_pad) == \
+            (n_pad <= 1 << 21)
+    assert tfused_cuda.launchable(16384, M, 6, 1 << 20)
+    assert not tfused_cuda.launchable(16384, M, 7, 1 << 20)
+    assert not tfused_cuda.launchable(1024, M, 3, 1 << 22)
+    assert not tfused_cuda.launchable(1000, M, 3, 1 << 16)
+    assert not tfused_cuda.launchable(1 << 16, M, 3, 1 << 16)
+    shared = 12288 if pair else 24576
+    words = 2 if pair else 1
+    for cap in (256, 1024, 4096, 16384):
+        n = cap * (1 + M)
+        got = tfused_cuda.scratch_words(cap, M, pair, shared)
+        assert got == (2 * n * words if n > shared else 1)
+    # At the headlines' M 32 tier 256 always sorts in shared memory; from
+    # tier 1024 the worst case needs the device buffers.
+    assert tfused_cuda.scratch_words(256, 32, pair, shared) == 1
+    assert tfused_cuda.scratch_words(1024, 32, pair, shared) == \
+        2 * 33792 * words
+    # The largest cap the launcher takes (n_pad 2^21): scratch of at most
+    # two buffers of 2^21 keys.
+    top = 1 << (((1 << 21) // (1 + M)).bit_length() - 1)
+    assert top == (1 << 15 if M == 32 else 1 << 16)
+    assert tfused_cuda.launchable(top, M, 3, 1 << 21)
+    assert not tfused_cuda.launchable(2 * top, M, 3, 1 << 21)
+    assert tfused_cuda.scratch_words(top, M, pair, shared) \
+        <= 2 * (1 << 21) * words
 
 
 # --- pair keys ------------------------------------------------------------
