@@ -11,9 +11,11 @@ raises on a failure:
 
 1. the card's name and power limit; the kernel builds;
 2. kernel vs plain version on the card: seeded bitmaps, masks and return
-   slots at w in {4, 10, 14, 15, 16, 18} and ns in {4, 8, 32}, both
-   bitmap placements (shared memory for w <= 15, device memory above),
-   with a case that dies; outputs must be bit-identical;
+   slots at w in {4, 10, 14, 15, 16, 18} and ns in {4, 8, 16, 32}, both
+   kernels (bit-sliced, bitmap in shared memory, for w <= 15; the
+   device-memory kernel above), with a case that dies, cases where
+   every slot is live on every row and cases where each row changes
+   one slot's masks; outputs must be bit-identical;
 3. the headline: a 100k-op CAS-register history with crashed ops
    through ``checker.linearizable(algorithm="gpu", device=dev)``, which must say
    valid and must have launched the kernel; then check times and the
@@ -82,7 +84,12 @@ raises on a failure:
     forced mode at 2 and 6 rounds and unforced, at padded sizes 2^10 ...
     2^22, 2^24 and 2^25 (the host caps 262,144 and 524,288 x 33
     candidates), on mixed, all-invalid and long-chain inputs and on
-    candidates expanded from the crash-dom headlines' own rows;
+    candidates expanded from the crash-dom headlines' own rows; for
+    ``dedup_keys2_dom`` also valid counts just below, at and just above
+    its one-launch path's shared capacity, one group whose entries are
+    dominated only at distance 128, and every entry equal, through both
+    of its routes; each of its paths (one launch sorting in shared or
+    device memory, the multi-launch chain) must run;
 16. the single-key crash-dom headline: a 5k-op partition-nemesis history
     at config 5's pacing (window 25, crashed mutators) through
     ``checker.linearizable(algorithm="gpu")``, valid by ``gpu-bfs`` with
@@ -97,7 +104,11 @@ raises on a failure:
     corrupted, invalid on the same op and dead row as the CPU oracle with
     final paths;
 19. each dominance dedup's time per call at its headline's most frequent
-    shape, beside its plain version's and its bound.
+    shape, beside its plain version's and its bound; ``dedup_keys2_dom``
+    at every in-chunk tier of its headline, through its route and each
+    route forced, and both routes on random keys at the gate (the
+    measurements behind ``psort.DOM_ONE_MAX_N``), with its launches per
+    call.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -106,6 +117,7 @@ without a CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -132,7 +144,12 @@ WIDE = dict(n_ops=20_000, concurrency=5, seed=42, value_range=5,
 CORRUPT = dict(n_ops=2_000, concurrency=5, seed=42, value_range=5,
                crash_prob=0.001)
 CASE_WIDTHS = (4, 10, 14, 15, 16, 18)
-CASE_STATES = (4, 8, 32)
+CASE_STATES = (4, 8, 16, 32)
+# (w, ns, mode) of the cases with every slot live on every row, or one
+# slot's masks changed a row.
+CASE_MODES = ((10, 8, "all-live"), (14, 8, "all-live"), (15, 16, "all-live"),
+              (10, 8, "one-change"), (14, 8, "one-change"),
+              (15, 32, "one-change"))
 CASE_ROWS = 300
 PLAIN_ROWS = 256
 
@@ -153,12 +170,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_case(rng, w, ns, rows, die_at=None):
+def random_case(rng, w, ns, rows, die_at=None, mode=None):
     """Seeded kernel inputs: a sparse entry bitmap, per-row masks from
     random partial transition functions over 70% of the slots, and return
     slots among each row's active slots. With ``die_at``, slot w-1 never
     has transitions and no entry config holds it, and it returns at row
-    ``die_at``: the frontier must die exactly there."""
+    ``die_at``: the frontier must die exactly there. ``mode``
+    "all-live": every slot has transitions on every row; "one-change":
+    each row after the first keeps the previous row's masks but one
+    slot's."""
     import numpy as np
 
     F = np.zeros(1 << w, np.uint32)
@@ -167,13 +187,19 @@ def random_case(rng, w, ns, rows, die_at=None):
         F[B] |= np.uint32(rng.integers(1, 1 << min(ns, 31)))
     F[0] |= np.uint32(1)
     masks = np.zeros((rows, w, ns), np.uint64)
-    active = rng.random((rows, w)) < 0.7
+    active = rng.random((rows, w)) < (1.0 if mode == "all-live" else 0.7)
     if die_at is not None:
         active[:, w - 1] = False
     legal = rng.random((rows, w, ns)) < 0.85
     target = rng.integers(0, ns, size=(rows, w, ns))
     for r, j, s in zip(*np.nonzero(active[:, :, None] & legal)):
         masks[r, j, target[r, j, s]] |= np.uint64(1) << np.uint64(s)
+    if mode == "one-change":
+        for r in range(1, rows):
+            j = rng.integers(w)
+            keep = np.arange(w) != j
+            masks[r, keep] = masks[r - 1, keep]
+            active[r, keep] = active[r - 1, keep]
     ret = np.zeros(rows, np.int32)
     for r in range(rows):
         cand = np.flatnonzero(active[r])
@@ -1535,26 +1561,126 @@ def dom_predecessor_tests(run) -> tuple:
         psort._dom_prune = prune
 
 
-def dom_check(tag: str, pair: bool, words, masks, cap: int) -> int:
-    """Kernel vs plain in every mode on one input; raises on a difference.
-    Returns the max word error."""
+def dom_path() -> str:
+    """The path of the latest ``dedup_keys2_dom`` on the card: "multi"
+    (the multi-launch chain), or the one launch's "shared" or "device"
+    from its path word."""
+    from jepsen_tpu_torch.lin import psort_cuda
+
+    if psort_cuda.last_dom_route != "one":
+        return "multi"
+    return {psort_cuda.PATH_SHARED: "shared",
+            psort_cuda.PATH_DEVICE: "device"}[int(psort_cuda.last_dom_path)]
+
+
+@contextlib.contextmanager
+def dom_route(route: str):
+    """``dedup_keys2_dom``'s route while inside: "gate" (by
+    ``psort.DOM_ONE_MAX_N``), "one" (one launch at every size) or
+    "multi" (the multi-launch chain at every size)."""
+    from jepsen_tpu_torch.lin import psort
+
+    saved = psort.DOM_ONE_MAX_N
+    psort.DOM_ONE_MAX_N = {"gate": saved, "one": psort.DOM_MAX_N,
+                           "multi": 0}[route]
+    try:
+        yield
+    finally:
+        psort.DOM_ONE_MAX_N = saved
+
+
+def dom_check(tag: str, pair: bool, words, masks, cap: int,
+              routes=("gate",)) -> tuple:
+    """Kernel vs plain in every mode on one input, through each of
+    ``routes`` (:func:`dom_route`); raises on a difference. Returns (the
+    max word error, the counts of each route's runs, the paths
+    ``dedup_keys2_dom`` took)."""
     import torch
 
     err = 0
-    flags = []
-    for force, rounds in DOM_MODES:
-        kern = dom_run(pair, words, masks, cap, force, rounds)
-        plain = dom_run(pair, words, masks, cap, force, rounds, plain=True)
-        torch.cuda.synchronize()
-        same, e = same_outputs(kern, plain)
-        err = max(err, e)
-        if not same:
-            raise AssertionError(f"{tag}: kernel != plain (force={force}, "
-                                 f"rounds={rounds}), error {e}")
-        flags.append(f"{int(kern[-2])}{'+' if bool(kern[-1]) else ''}")
+    counts, paths = {}, []
+    for route in routes:
+        flags = []
+        with dom_route(route):
+            for force, rounds in DOM_MODES:
+                kern = dom_run(pair, words, masks, cap, force, rounds)
+                if pair:
+                    paths.append(dom_path())
+                plain = dom_run(pair, words, masks, cap, force, rounds,
+                                plain=True)
+                torch.cuda.synchronize()
+                same, e = same_outputs(kern, plain)
+                err = max(err, e)
+                if not same:
+                    raise AssertionError(
+                        f"{tag}: kernel != plain (route {route}, force="
+                        f"{force}, rounds={rounds}), error {e}")
+                flags.append(int(kern[-2]))
+                if bool(kern[-1]):
+                    flags[-1] = f"{flags[-1]}+"
+        counts[route] = flags
+    shown = " ".join(f"{r}: {' '.join(map(str, c))}"
+                     for r, c in counts.items())
     log(f"{tag} cap={cap} bit_exact=True counts (forced 2, forced 6, "
-        f"unforced; + = overflow) {' '.join(flags)}")
-    return err
+        f"unforced; + = overflow) {shown}"
+        + (f" paths {'/'.join(paths)}" if paths else ""))
+    return err, counts, set(paths)
+
+
+# The pair dedup's own inputs: the padded size of the capacity cases, the
+# entries of the one group whose dominators sit at distance 128, and the
+# size of the every-entry-equal case.
+DOM_CAP_N = 8192
+DOM_CHAIN_GROUP = 256
+DOM_EQUAL_N = 4096
+
+
+def dom_chain_group(cmask: int, rmask: int):
+    """Pair keys of one group of 2 x 128 entries whose dominance words
+    are, sorted, A_0 < ... < A_127 (distinct 5-of-10 bit patterns of the
+    low crashed bits, so no one is a subset of another) and then each
+    A_i with the top crashed bit added: entry 128 + i is dominated by
+    entry i alone, at distance 128, and entry 128 also by the group's
+    first entry. Forced (chain 128) 128 survive; unforced (chain 2)
+    255."""
+    import itertools
+
+    import numpy as np
+
+    low = [b for b in range(64) if (cmask >> b) & 1]
+    pats = [sum(1 << low[b] for b in c)
+            for c in itertools.combinations(range(10), 5)][:128]
+    top = 1 << max(low)
+    grp = 5 | (3 << 48)
+    keys = [grp | rmask | a for a in pats] + \
+        [grp | rmask | a | top for a in pats]
+    return np.array(keys, np.uint64)
+
+
+def dom_pair_cases(rng, shared_n: int):
+    """Seeded (label, key u64, valid, cap, routes, want) cases of the pair
+    dedup: valid counts just below, at and just above its one-launch
+    shared capacity ``shared_n`` (want: that path), the distance-128
+    group and every entry equal (want: the counts in forced-2,
+    forced-6 and unforced mode)."""
+    import numpy as np
+
+    cmask, rmask = DOM_MASKS[True]
+    out = []
+    for live, path in ((shared_n - 1, "shared"), (shared_n, "shared"),
+                       (shared_n + 1, "device")):
+        key = rng.integers(0, 1 << 52, DOM_CAP_N, dtype=np.uint64)
+        valid = np.zeros(DOM_CAP_N, bool)
+        valid[rng.choice(DOM_CAP_N, live, replace=False)] = True
+        out.append((f"live={live}", key, valid, DOM_CAP_N // 4,
+                    ("gate", "multi"), path))
+    chain = dom_chain_group(cmask, rmask)
+    out.append(("chain-128", chain, np.ones(chain.size, bool),
+                chain.size, ("gate", "multi"), [128, 128, 255]))
+    key = np.full(DOM_EQUAL_N, rng.integers(0, 1 << 52), np.uint64)
+    out.append(("every-entry-equal", key, np.ones(DOM_EQUAL_N, bool),
+                DOM_EQUAL_N // 4, ("gate", "multi"), [1, 1, 1]))
+    return out
 
 
 def dom_fronts(eng, rows: int):
@@ -1609,20 +1735,41 @@ def check_dom_kernels(dev, engines) -> dict:
     error}."""
     import numpy as np
 
-    from jepsen_tpu_torch.lin import bfs
+    from jepsen_tpu_torch.lin import bfs, psort_cuda
 
     errs = {}
+    seen = set()
     for pair in (False, True):
         name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
         rng = np.random.default_rng(91 if pair else 90)
         err = 0
+        cmask, rmask = DOM_MASKS[pair]
         for n in DOM_SIZES + DOM_BIG:
             for label, key, valid, cap in dom_random_keys(rng, n, pair):
-                cmask, rmask = DOM_MASKS[pair]
                 words = dom_words(dev, pair, key, valid, cmask, rmask)
-                err = max(err, dom_check(
+                e, _, paths = dom_check(
                     f"[{name}-vs-plain] n={n} {label}", pair, words,
-                    dom_mask_words(pair, cmask, rmask), cap))
+                    dom_mask_words(pair, cmask, rmask), cap)
+                err = max(err, e)
+                seen |= paths
+        if pair:
+            shared_n = psort_cuda.dom_one_shared_max_n(True)
+            for label, key, valid, cap, routes, want in \
+                    dom_pair_cases(rng, shared_n):
+                words = dom_words(dev, pair, key, valid, cmask, rmask)
+                e, counts, paths = dom_check(
+                    f"[{name}-vs-plain] n={key.size} {label}", pair, words,
+                    dom_mask_words(pair, cmask, rmask), cap, routes)
+                err = max(err, e)
+                seen |= paths
+                if isinstance(want, str) and paths != {want, "multi"}:
+                    raise AssertionError(f"{label}: paths {paths}, the one "
+                                         f"launch should sort in {want} "
+                                         "memory")
+                if isinstance(want, list) and any(c != want
+                                                  for c in counts.values()):
+                    raise AssertionError(f"{label}: counts {counts}, want "
+                                         f"{want}")
         eng, fronts = engines[pair]
         for front in sorted(fronts, key=lambda f: -f[3])[:3]:
             count = front[3]
@@ -1630,11 +1777,18 @@ def check_dom_kernels(dev, engines) -> dict:
                         if count * bfs.TIER_MARGIN <= t)
             key, valid, cmask, rmask = dom_candidates(eng, front, tier)
             words = dom_words(dev, pair, key, valid, cmask, rmask)
-            err = max(err, dom_check(
+            e, _, paths = dom_check(
                 f"[{name}-vs-plain] headline row {front[0]} count {count} "
                 f"tier {tier} n={key.size}", pair, words,
-                dom_mask_words(pair, cmask, rmask), tier))
+                dom_mask_words(pair, cmask, rmask), tier,
+                ("gate", "multi") if pair else ("gate",))
+            err = max(err, e)
+            seen |= paths
         errs[name] = err
+    log(f"[dedup_keys2_dom-paths] runs took {sorted(seen)}")
+    if seen != {"shared", "device", "multi"}:
+        raise AssertionError(f"dedup_keys2_dom paths run: {sorted(seen)}, "
+                             "want shared, device and multi")
     return errs
 
 
@@ -1798,6 +1952,115 @@ def dom_times(eng, fronts, stats, pair: bool):
     return ms, plain, bound, by, shape
 
 
+def dom_tier_times(eng, fronts, stats) -> list:
+    """Phase 19 for ``dedup_keys2_dom``: its time per call at every
+    in-chunk tier the pair crash-dom headline met (real candidates of the
+    fullest recorded row the tier holds, 2 rounds) through its route
+    (``psort.DOM_ONE_MAX_N``) and through each route forced, with its
+    kernel launches per call (the library's count), beside its plain
+    version's time and its bound; and both routes on the tier's worst
+    case, every candidate valid. Returns one dict a tier."""
+    import numpy as np
+
+    from jepsen_tpu_torch.lin import bfs, psort, psort_cuda
+
+    unfused = dict(stats.get("unfused_tiers", {}))
+    rows = []
+    for tier in sorted(unfused):
+        fit = [f for f in fronts if f[3] * bfs.TIER_MARGIN <= tier]
+        if not fit:
+            continue
+        front = max(fit, key=lambda f: (f[3], f[0]))
+        key, valid, cmask, rmask = dom_candidates(eng, front, tier)
+        words = dom_words(eng.dev, True, key, valid, cmask, rmask)
+        masks = dom_mask_words(True, cmask, rmask)
+        rounds = bfs.DOM_ITERS_CHUNK
+
+        def run(plain=False):
+            return dom_run(True, words, masks, tier, True, rounds,
+                           plain=plain)
+
+        out, work = dom_predecessor_tests(lambda: run(plain=True))
+        before = psort_cuda.dom_kernel_launches()
+        run()
+        per_call = psort_cuda.dom_kernel_launches() - before
+        path = dom_path()
+        ms = time_chunk(run, 50)
+        with dom_route("one"):
+            one_ms = time_chunk(run, 50)
+        with dom_route("multi"):
+            multi_ms = time_chunk(run, 20)
+        plain = time_chunk(lambda: run(plain=True), 3)
+        n = key.size
+        # The worst case of the tier, every candidate valid, up to four
+        # times the one launch's gate (one block sorts all of them).
+        worst = None
+        if psort.pad_size(n) <= 4 * psort.DOM_ONE_MAX_N:
+            full = dom_words(eng.dev, True, key, np.ones_like(valid), cmask,
+                             rmask)
+
+            def run_full():
+                return dom_run(True, full, masks, tier, True, rounds)
+
+            with dom_route("one"):
+                run_full()
+                worst = {"path": dom_path(), "one_ms": time_chunk(run_full, 3)}
+            with dom_route("multi"):
+                worst["multi_ms"] = time_chunk(run_full, 3)
+        bound, by = dom_bound(n, tier, 4, work, int(out[-2]))
+        row = {"tier": tier, "passes": unfused[tier], "row": front[0],
+               "count": front[3], "n": n, "n_pad": psort.pad_size(n),
+               "valid": int(valid.sum()), "survivors": int(out[-2]),
+               "path": path, "launches_per_call": per_call, "ms": ms,
+               "one_ms": one_ms, "multi_ms": multi_ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by,
+               "predecessor_tests": work, "all_valid": worst}
+        log(f"[dom-tier-time] dedup_keys2_dom tier={tier} "
+            f"({unfused[tier]} passes) row={front[0]} count={front[3]} "
+            f"n={n} (pad {row['n_pad']}) valid={row['valid']} survivors="
+            f"{row['survivors']}: {path}, {per_call} launches a call, "
+            f"{ms:.4f} ms (one launch {one_ms:.4f} ms, multi-launch "
+            f"{multi_ms:.4f} ms), plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({by})"
+            + (f"; every candidate valid: one launch ({worst['path']}) "
+               f"{worst['one_ms']:.4f} ms, multi-launch "
+               f"{worst['multi_ms']:.4f} ms" if worst else ""))
+        rows.append(row)
+    return rows
+
+
+def dom_gate_worst(dev) -> dict:
+    """Phase 19: both routes of ``dedup_keys2_dom`` at the one launch's
+    gate, n = ``psort.DOM_ONE_MAX_N``, on phase 15's mixed random keys
+    (85% valid, so the one launch sorts in device memory): the worst case
+    the gate admits."""
+    import numpy as np
+
+    from jepsen_tpu_torch.lin import psort
+
+    n = psort.DOM_ONE_MAX_N
+    rng = np.random.default_rng(92)
+    _, key, valid, cap = dom_random_keys(rng, n, True)[0]
+    cmask, rmask = DOM_MASKS[True]
+    words = dom_words(dev, True, key, valid, cmask, rmask)
+    masks = dom_mask_words(True, cmask, rmask)
+
+    def run():
+        return dom_run(True, words, masks, cap, True, 2)
+
+    out = {"n": n, "valid": int(valid.sum())}
+    with dom_route("one"):
+        run()
+        out["path"] = dom_path()
+        out["one_ms"] = time_chunk(run, 3)
+    with dom_route("multi"):
+        out["multi_ms"] = time_chunk(run, 3)
+    log(f"[dom-gate-worst] dedup_keys2_dom n={n} mixed random keys, "
+        f"{out['valid']} valid, 2 rounds: one launch ({out['path']}) "
+        f"{out['one_ms']:.4f} ms, multi-launch {out['multi_ms']:.4f} ms")
+    return out
+
+
 def crashdom_phases(dev) -> list:
     """Phases 15-19, the crash-dom bands. Returns the kernels line's
     entries of the two dominance dedups."""
@@ -1839,8 +2102,23 @@ def crashdom_phases(dev) -> list:
         name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
         r, launches, per_call, t_dev = results[pair]
         eng, fronts = engines[pair]
-        ms, plain, bound, by, shape = dom_times(eng, fronts,
-                                                r["engine-stats"], pair)
+        extra = {}
+        if pair:
+            tiers = dom_tier_times(eng, fronts, r["engine-stats"])
+            unfused = r["engine-stats"]["unfused_tiers"]
+            top = max(unfused, key=unfused.get)
+            t = next(x for x in tiers if x["tier"] == top)
+            ms, plain, bound, by = (t["ms"], t["plain_ms"], t["bound_ms"],
+                                    t["bound_by"])
+            shape = {"n": t["n"], "n_pad": t["n_pad"], "cap": top,
+                     "rounds": 2, "M": eng.M,
+                     "predecessor_tests": t["predecessor_tests"]}
+            extra = {"path": t["path"],
+                     "launches_per_call": t["launches_per_call"],
+                     "tiers": tiers, "gate_worst": dom_gate_worst(dev)}
+        else:
+            ms, plain, bound, by, shape = dom_times(eng, fronts,
+                                                    r["engine-stats"], pair)
         entries.append({
             "name": name, "route": "cuda", "source": SRC + "psort.cu",
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1848,7 +2126,7 @@ def crashdom_phases(dev) -> list:
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bit_exact": True, "shape": shape, "headline_ms": per_call,
             "headline_check_s": t_dev,
-            "sizes": list(DOM_SIZES + DOM_BIG)})
+            "sizes": list(DOM_SIZES + DOM_BIG), **extra})
     return entries
 
 
@@ -1883,8 +2161,11 @@ def main(device: str = "cuda") -> int:
     _build.build(["dense_chunk", "psort", "psort_fused"])
     smem_w = dense_cuda.shared_max_w()
     log(f"[build] dense_chunk, psort, psort_fused built and loaded in "
-        f"{time.perf_counter() - t0:.2f}s (dense shared-memory bitmap up "
-        f"to w={smem_w})")
+        f"{time.perf_counter() - t0:.2f}s (dense: bit-sliced kernel up "
+        f"to w={smem_w}, device-memory kernel above)")
+    if smem_w != dense_cuda.SHARED_MAX_W:
+        raise AssertionError(f"the library's sliced limit w={smem_w} is "
+                             "not dense_cuda.SHARED_MAX_W")
     for name in ("dense_chunk", "psort", "psort_fused"):
         for line in _build.BUILD_LOG.get(name, {}).get(
                 "ptxas", "").splitlines():
@@ -1895,10 +2176,11 @@ def main(device: str = "cuda") -> int:
     rng = np.random.default_rng(1234)
     max_err = 0
     widths = []
-    cases = [(w, ns, None) for w in CASE_WIDTHS for ns in CASE_STATES]
-    cases += [(14, 8, 150), (16, 8, 150)]
-    for w, ns, die_at in cases:
-        Fh, mh, rh = random_case(rng, w, ns, CASE_ROWS, die_at)
+    cases = [(w, ns, None, None) for w in CASE_WIDTHS for ns in CASE_STATES]
+    cases += [(14, 8, 150, None), (16, 8, 150, None)]
+    cases += [(w, ns, None, mode) for w, ns, mode in CASE_MODES]
+    for w, ns, die_at, mode in cases:
+        Fh, mh, rh = random_case(rng, w, ns, CASE_ROWS, die_at, mode)
         F = _u32.bitmap_from_numpy(Fh, dev)
         masks = _u32.bitmap_from_numpy(mh, dev)
         ret = torch.from_numpy(rh).to(dev)
@@ -1909,8 +2191,8 @@ def main(device: str = "cuda") -> int:
         same, err = same_result(k, pl)
         max_err = max(max_err, err)
         rows_done, dead, trunc, passes, sweeps = k.state.tolist()
-        place = "shared" if w <= smem_w else "device"
-        log(f"[kernel-vs-plain] w={w:2d} ns={ns:2d} {place:6s} "
+        log(f"[kernel-vs-plain] w={w:2d} ns={ns:2d} "
+            f"{dense_cuda.kernel_path(w):6s} {mode or 'random':10s} "
             f"rows_done={rows_done} dead={dead} trunc={trunc} "
             f"passes={passes} sweeps={sweeps} bit_exact={same}")
         if not same:
@@ -1980,11 +2262,15 @@ def main(device: str = "cuda") -> int:
             lambda: dense_cuda.dense_chunk(F, n, masks, ret, w=wc, ns=ns),
             reps=2))
         log(f"[headline] chunk {i}: rows {base}..{base + n - 1} w={wc} "
+            f"({dense_cuda.kernel_path(wc)}) entry bitmap "
+            f"{int((F != 0).sum())} of {F.numel()} words nonzero, "
+            f"{_u32.popcount(F)} configs; "
             f"passes={int(res.passes)} sweeps={int(res.sweeps)} kernel "
             f"{chunk_ms[-1]:.3f} ms ({chunk_ms[-1] / n * 1e3:.2f} us/row), "
             f"bound {b_ms:.4f} ms ({b_by})")
+    launch_ms = sum(chunk_ms) / len(chunk_ms)
     log(f"[headline] launches={launches} mean ms/launch="
-        f"{sum(chunk_ms) / len(chunk_ms):.3f} (CUDA events); kernels "
+        f"{launch_ms:.3f} (CUDA events); kernels "
         f"{sum(chunk_ms):.1f} ms = {sum(chunk_ms) / (best * 1e3):.1%} of "
         f"the best device check; bound {sum(chunk_bound):.4f} ms")
 
@@ -2050,8 +2336,9 @@ def main(device: str = "cuda") -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
-        "bit_exact": True, "widths": widths,
-        "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
+        "bit_exact": True, "widths": widths, "path": dense_cuda.kernel_path(w),
+        "launch_ms": launch_ms, "launch_bound_ms": sum(chunk_bound) /
+        len(chunk_bound), "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
     kernels += sparse_phases(dev)
     kernels += pair_phases(dev)
     kernels += crashdom_phases(dev)

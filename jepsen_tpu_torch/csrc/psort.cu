@@ -82,20 +82,48 @@
 // predecessor, or dominated (its group's first entry, or a predecessor at
 // distance 1..chain in its group, has a word that is a strict subset of
 // its own), and compact the survivors in order between rounds; last they
-// sort the survivors' recombined full keys. Here: one sort of the pairs
-// (the same tile and global-stage kernels on the wider key), then per
-// round one thread per entry finds its group's first entry by a binary
-// search for its group in the sorted array (the reference's segmented
-// scan) and walks back over its predecessors while they are in its group
-// (a predecessor outside the group ends the walk: groups are contiguous),
-// and a block-count / scan / scatter compacts the survivors, the rest
-// becoming the fill key. The full keys are scattered to their ranks with
-// the fill after them and sorted; the sort of the full keys and every
-// later round stop at the padded survivor count, read on the device, so
-// nothing synchronises with the host. Bound on this card: the initial sort
-// (log2(n_pad)^2 / 2 stages through L2 or device memory, 16 bytes a pair
-// key) at every size the engine gives (up to 2^25 candidates at the last
-// host cap); the chain walks are short where groups are small.
+// sort the survivors' recombined full keys. Two paths, chosen on the host
+// from n_pad (psort.DOM_ONE_MAX_N, set on the card).
+//
+// One launch (pair keys, n_pad up to the gate: the in-chunk tiers 256 ..
+// 4,096 at M 32). One block of 1024 threads does the whole call. It loads
+// only the valid entries (an invalid one, or the padding, never
+// survives), placed in any order by a warp ballot and one shared atomic
+// per warp, taking the OR and AND of their bits; sorts them by the
+// 128-bit key with a block-local LSD radix sort over 8-bit windows that
+// cover only the bits that vary (each window starts at the lowest
+// varying bit not yet covered; stable by warp multisplit, as in
+// psort_fused.cu), or by rank when there are at most 128; runs the prune
+// rounds on the sorted array (a binary search for the group's first
+// entry, the walk back over the chain), each round's keep bits by warp
+// ballots and its order-preserving compaction by a scan of the warps'
+// counts; writes the survivors' full keys, sorts them the same way, and
+// writes out[cap], the count and the overflow flag. Entries live in two
+// 96 KiB buffers of dynamic shared memory while the valid ones fit
+// (6,144 pairs; the keep bits in the histogram space), else in two
+// device-memory buffers of n entries plus n / 32 + 1 keep words that the
+// wrapper sizes from n: the path is chosen inside the launch, with no
+// host sync, and written in a third word beside the flags. The pair
+// crash-dom headline's fullest calls hold 168, 600 and 1,809 valid
+// entries at tiers 256, 1,024 and 4,096 (chip_smoke.py phase 19; the
+// rest of the n = 33 * tier candidates is fill), so the load's sweep of
+// the n entries and the few barriers of each radix window bound it, on
+// one SM. With many valid entries (dense random keys) the one block
+// loses to the multi-launch chain's 132 SMs, which sets the gate.
+//
+// Multi-launch (every n_pad, the single-key band, and the pair calls
+// past the gate: the host-row executor's caps up to 2^25). One sort of
+// the entries (the tile and global-stage kernels above on the wider
+// key), then per round one thread per entry finds its group's first
+// entry by a binary search and walks back over its predecessors while
+// they are in its group, and a block-count / scan / scatter compacts the
+// survivors, the rest becoming the fill key. The full keys are scattered
+// to their ranks with the fill after them and sorted; the sort of the
+// full keys and every later round stop at the padded survivor count,
+// read on the device, so nothing synchronises with the host. 14 or more
+// dependent launches a call (dom_kernel_launches counts them); bound by
+// launch latency at small n_pad and by the initial sort (log2(n_pad)^2 /
+// 2 stages through L2 or device memory, 16 bytes a pair key) at large.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see jepsen_tpu_torch/_build.py).
@@ -254,18 +282,23 @@ __global__ void merge_tile(K* work, int n_pad, int tile, int k,
 
 // The merges of a bitonic sort whose tiles are sorted in alternating
 // directions: sizes 2 * tile .. n_pad.
+// Returns the kernels it launched.
 template <typename K>
-void merge_all(K* work, int n_pad, int tile, const int32_t* total,
-               cudaStream_t st) {
+int merge_all(K* work, int n_pad, int tile, const int32_t* total,
+              cudaStream_t st) {
   const int tiles = n_pad / tile;
   const int pair_blocks = (n_pad / 2 + kThreads - 1) / kThreads;
+  int launched = 0;
   for (int k = 2 * tile; k <= n_pad; k <<= 1) {
     for (int j = k >> 1; j >= tile; j >>= 1) {
       merge_global<K><<<pair_blocks, kThreads, 0, st>>>(work, n_pad, k, j,
                                                         total);
+      ++launched;
     }
     merge_tile<K><<<tiles, kThreads, 0, st>>>(work, n_pad, tile, k, total);
+    ++launched;
   }
+  return launched;
 }
 
 // Sorts work[0 .. n_pad) ascending, loading it from (hi,) lo.
@@ -292,13 +325,14 @@ __global__ void sort_tiles_work(K* work, int n_pad, int tile,
 }
 
 // Sorts work[0 .. n_pad) in place (with `total`: its padded prefix).
+// Returns the kernels it launched.
 template <typename K>
-void bitonic_sort_work(K* work, int n_pad, const int32_t* total,
-                       cudaStream_t st) {
+int bitonic_sort_work(K* work, int n_pad, const int32_t* total,
+                      cudaStream_t st) {
   const int tile = n_pad < KeyOf<K>::kTile ? n_pad : KeyOf<K>::kTile;
   sort_tiles_work<K><<<n_pad / tile, kThreads, 0, st>>>(work, n_pad, tile,
                                                         total);
-  merge_all<K>(work, n_pad, tile, total, st);
+  return 1 + merge_all<K>(work, n_pad, tile, total, st);
 }
 
 // N inclusive scans over the block at once, of v[0 .. N) (blockDim.x a
@@ -804,6 +838,11 @@ struct Dom<uint64_t> {
   using G = uint32_t;  // group part, its bit 31 the invalid flag
   using W = uint32_t;  // dominance word
   using F = uint32_t;  // full key
+  // Entry i of the word arrays (a in a_lo, w in w_lo).
+  __device__ static uint64_t load(const uint32_t*, const uint32_t* a,
+                                  const uint32_t*, const uint32_t* w, int i) {
+    return (static_cast<uint64_t>(a[i]) << 32) | w[i];
+  }
   __device__ static G group(uint64_t e) { return static_cast<G>(e >> 32); }
   __device__ static W word(uint64_t e) { return static_cast<W>(e); }
   __device__ static uint64_t fill() { return ~uint64_t(0); }
@@ -819,6 +858,12 @@ struct Dom<U128> {
   using G = uint64_t;
   using W = uint64_t;
   using F = uint64_t;
+  __device__ static U128 load(const uint32_t* a_hi, const uint32_t* a_lo,
+                              const uint32_t* w_hi, const uint32_t* w_lo,
+                              int i) {
+    return U128{(static_cast<uint64_t>(a_hi[i]) << 32) | a_lo[i],
+                (static_cast<uint64_t>(w_hi[i]) << 32) | w_lo[i]};
+  }
   __device__ static G group(const U128& e) { return e.hi; }
   __device__ static W word(const U128& e) { return e.lo; }
   __device__ static U128 fill() { return U128{~uint64_t(0), ~uint64_t(0)}; }
@@ -938,6 +983,9 @@ bool bad_dom_sizes(int n, int n_pad, int cap, int chain, int rounds) {
          chain < 0 || rounds < 1;
 }
 
+// Kernels launched by the dominance dedups since the library was loaded.
+long long dom_kernel_launches = 0;
+
 // The prune rounds, the full keys and their sort, after the entries are
 // loaded into e0. e1 is the compaction's second buffer.
 template <typename E>
@@ -949,11 +997,12 @@ int dom_finish(E* e0, E* e1, int n_pad, int cap, int chain, int rounds,
   const int n_blocks = n_pad / kSeg;
   const int grid = (n_pad + kThreads - 1) / kThreads;
   const int32_t* total = blocks + n_blocks;
-  bitonic_sort_work<E>(e0, n_pad, nullptr, st);
+  dom_kernel_launches += bitonic_sort_work<E>(e0, n_pad, nullptr, st);
   for (int r = 0; r < rounds; ++r) {
     if (r > 0) {
       dom_compact<E><<<n_blocks, kSeg, 0, st>>>(e0, keep, blocks, n_blocks,
                                                 e1);
+      ++dom_kernel_launches;
       E* t = e0;
       e0 = e1;
       e1 = t;
@@ -963,12 +1012,430 @@ int dom_finish(E* e0, E* e1, int n_pad, int cap, int chain, int rounds,
                                             r > 0 ? total : nullptr, keep);
     flag_count<<<n_blocks, kSeg, 0, st>>>(keep, blocks);
     count_scan<<<1, kThreads, 0, st>>>(blocks, n_blocks, cap, flags);
+    dom_kernel_launches += 3;
   }
   dom_full<E><<<n_blocks, kSeg, 0, st>>>(e0, keep, blocks, n_blocks, cmask,
                                          rmask, full);
-  bitonic_sort_work<F>(full, n_pad, total, st);
+  dom_kernel_launches += 1 + bitonic_sort_work<F>(full, n_pad, total, st);
   dom_out<F><<<(cap + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       full, cap, out_hi, out_lo);
+  ++dom_kernel_launches;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --- the one-launch dominance dedup --------------------------------------
+//
+// One block of 1024 threads does the whole call: load the valid entries,
+// sort them, run the prune rounds with an order-preserving compaction
+// between them, build and sort the survivors' full keys, write the
+// output and the flags. Entries and full keys live in two ping-pong
+// buffers of kOneSharedBytes / 2 each in dynamic shared memory while the
+// valid entries fit (kOneSharedN of them), else in two device-memory
+// buffers of n entries that the wrapper sizes from n (with n / 32 keep
+// words after them); the load writes entries past kOneSharedN there and
+// the block copies the rest over, so the path is chosen inside the
+// launch, with no host sync, and recorded in a word beside the flags.
+
+constexpr int kOneWarps = kThreads / 32;
+constexpr int kOneSharedBytes = 192 * 1024;
+// Keys a block ranks by comparing each with all the others (one step),
+// rather than by radix passes (7 barriers a digit).
+constexpr int kRankMaxN = 128;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// Bits of the path word.
+constexpr int kOnePathShared = 1;
+constexpr int kOnePathDevice = 2;
+
+template <typename E>
+struct OneOf {
+  static constexpr int kSharedN =
+      kOneSharedBytes / 2 / static_cast<int>(sizeof(E));
+};
+
+// The bits of a key as (hi, lo) words: entries, and u64 full keys.
+struct Bits {
+  uint64_t hi, lo;
+};
+__device__ __forceinline__ Bits bits_of(const U128& v) { return {v.hi, v.lo}; }
+__device__ __forceinline__ Bits bits_of(uint64_t v) { return {0, v}; }
+__device__ __forceinline__ bool operator<(const U128& a, const U128& b) {
+  return b > a;
+}
+
+// The 8 key bits from bit `off` up (bits past the key read as zero).
+template <typename K>
+__device__ __forceinline__ int bits_digit(const K& v, int off) {
+  const Bits b = bits_of(v);
+  uint64_t x;
+  if (off >= 64) {
+    x = b.hi >> (off - 64);
+  } else {
+    x = b.lo >> off;
+    if (off > 56) x |= b.hi << (64 - off);
+  }
+  return static_cast<int>(x & 0xFF);
+}
+
+// The lowest set bit of `vary` at or above bit `from`, or -1.
+__device__ __forceinline__ int next_bit(Bits vary, int from) {
+  if (from < 64) {
+    const uint64_t lo = vary.lo >> from << from;
+    if (lo) return __ffsll(static_cast<long long>(lo)) - 1;
+    from = 64;
+  }
+  if (from >= 128) return -1;
+  const uint64_t hi = vary.hi >> (from - 64) << (from - 64);
+  return hi ? 63 + __ffsll(static_cast<long long>(hi)) : -1;
+}
+
+// Keys per warp when n keys are split into 32 contiguous warp ranges of
+// whole 32-key steps.
+__device__ __forceinline__ int one_span(int n) {
+  return ((n + kThreads - 1) / kThreads) * 32;
+}
+
+// One stable LSD pass of the block over the 8-bit digit at bit `off`:
+// src[0 .. n) -> dst, as psort_fused.cu's radix_pass (warp multisplit by
+// __match_any_sync, warp counts scanned digit-major). Ends synchronised.
+template <typename K>
+__device__ void one_radix_pass(const K* src, K* dst, int n, int off,
+                               int (*hist)[kDigits + 1], int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int span = one_span(n);
+  const int lo = min(n, warp * span);
+  const int hi = min(n, lo + span);
+  for (int i = threadIdx.x; i < kOneWarps * (kDigits + 1); i += kThreads) {
+    (&hist[0][0])[i] = 0;
+  }
+  __syncthreads();
+  for (int g = lo; g < hi; g += 32) {
+    const int i = g + lane;
+    const bool ok = i < hi;
+    const int d = ok ? bits_digit(src[i], off) : -1;
+    const unsigned act = __ballot_sync(kFullMask, ok);
+    if (ok) {
+      const unsigned peers = __match_any_sync(act, d);
+      if (lane == __ffs(peers) - 1) hist[warp][d] += __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  {
+    // Thread t owns entries 8t .. 8t + 7 of the digit-major order
+    // e = d * 32 + w: digit t / 4, warps (t % 4) * 8 .. + 7.
+    const int d = threadIdx.x >> 2;
+    const int w0 = (threadIdx.x & 3) * 8;
+    int c[8];
+    int sum = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      c[k] = hist[w0 + k][d];
+      sum += c[k];
+    }
+    int at = block_inclusive_scan(sum, warp_sums) - sum;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      hist[w0 + k][d] = at;
+      at += c[k];
+    }
+  }
+  __syncthreads();
+  for (int g = lo; g < hi; g += 32) {
+    const int i = g + lane;
+    const bool ok = i < hi;
+    const K v = ok ? src[i] : K{};
+    const int d = ok ? bits_digit(v, off) : -1;
+    const unsigned act = __ballot_sync(kFullMask, ok);
+    if (ok) {
+      const unsigned peers = __match_any_sync(act, d);
+      const int leader = __ffs(peers) - 1;
+      int before = 0;
+      if (lane == leader) {
+        before = hist[warp][d];
+        hist[warp][d] = before + __popc(peers);
+      }
+      dst[__shfl_sync(peers, before, leader) + __popc(peers & below)] = v;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// The block's OR and AND of its threads' (hi, lo) words into s_or/s_and
+// (set to 0 and ~0 before a barrier that precedes this). Ends
+// synchronised.
+__device__ __forceinline__ void block_or_and(Bits o, Bits a,
+                                             unsigned long long* s_or,
+                                             unsigned long long* s_and) {
+  const uint64_t ow[2] = {o.hi, o.lo}, aw[2] = {a.hi, a.lo};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t o0 =
+        __reduce_or_sync(kFullMask, static_cast<uint32_t>(ow[k]));
+    const uint32_t o1 =
+        __reduce_or_sync(kFullMask, static_cast<uint32_t>(ow[k] >> 32));
+    const uint32_t a0 =
+        __reduce_and_sync(kFullMask, static_cast<uint32_t>(aw[k]));
+    const uint32_t a1 =
+        __reduce_and_sync(kFullMask, static_cast<uint32_t>(aw[k] >> 32));
+    if ((threadIdx.x & 31) == 0) {
+      atomicOr(&s_or[k], (static_cast<unsigned long long>(o1) << 32) | o0);
+      atomicAnd(&s_and[k], (static_cast<unsigned long long>(a1) << 32) | a0);
+    }
+  }
+  __syncthreads();
+}
+
+// Sorts src[0 .. n) ascending, the bits that differ among the keys
+// being `vary`: by rank for a few keys, else by LSD passes over the 8-bit
+// windows that cover the varying bits (each window starts at the lowest
+// varying bit not yet covered). Returns the buffer holding the result
+// (src or dst). Ends synchronised.
+template <typename K>
+__device__ K* one_sort(K* src, K* dst, int n, Bits vary,
+                       int (*hist)[kDigits + 1], int* warp_sums) {
+  if (n <= 1) return src;
+  if (n <= kRankMaxN) {
+    // A key's rank: the keys below it, and its equals at lower indices.
+    const int i = threadIdx.x;
+    if (i < n) {
+      const K v = src[i];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) {
+        const K u = src[j];
+        rank += (u < v) || (j < i && u == v);
+      }
+      dst[rank] = v;
+    }
+    __syncthreads();
+    return dst;
+  }
+  for (int off = next_bit(vary, 0); off >= 0; off = next_bit(vary, off + 8)) {
+    one_radix_pass(src, dst, n, off, hist, warp_sums);
+    K* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+// Keep-or-drop of sorted entry i (all valid): a duplicate of its
+// predecessor, or dominated by its group's first entry (binary search)
+// or by a predecessor at distance 1..chain in its group, is dropped.
+template <typename E>
+__device__ __forceinline__ bool one_keep(const E* s, int i, int chain) {
+  using D = Dom<E>;
+  const E v = s[i];
+  if (i > 0 && s[i - 1] == v) return false;
+  const typename D::G g = D::group(v);
+  const typename D::W w = D::word(v);
+  int lo = 0, hi = i;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (D::group(s[mid]) < g) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const typename D::W f = D::word(s[lo]);
+  bool dom = (f & ~w) == 0 && f != w;
+  for (int d = 1; d <= chain && !dom && i - d >= lo; ++d) {
+    const typename D::W x = D::word(s[i - d]);
+    dom = (x & ~w) == 0 && x != w;
+  }
+  return !dom;
+}
+
+template <typename E>
+__device__ __forceinline__ void one_put(E* shared, E* spill, int i, E v) {
+  if (i < OneOf<E>::kSharedN) {
+    shared[i] = v;
+  } else {
+    spill[i] = v;
+  }
+}
+
+// One block per SM: every thread may take 64 registers. scratch: two
+// buffers of n entries and n / 32 + 1 keep words when n exceeds
+// OneOf<E>::kSharedN, else unused.
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+    dom_one_kernel(const uint32_t* a_hi, const uint32_t* a_lo,
+                   const uint32_t* w_hi, const uint32_t* w_lo, int n,
+                   int cap, int chain, int rounds, uint64_t cmask,
+                   uint64_t rmask, uint32_t* out_hi, uint32_t* out_lo,
+                   int32_t* flags, E* scratch) {
+  using D = Dom<E>;
+  using F = typename D::F;
+  constexpr int S = OneOf<E>::kSharedN;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  __shared__ int hist[kOneWarps][kDigits + 1];
+  __shared__ int warp_sums[32];
+  __shared__ int s_live;
+  __shared__ unsigned long long s_or[2], s_and[2];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  E* A = reinterpret_cast<E*>(dyn_raw);
+  E* B = A + S;
+  E* GA = scratch;
+  E* GB = scratch + n;
+  if (tid == 0) {
+    s_live = 0;
+    s_or[0] = s_or[1] = 0ull;
+    s_and[0] = s_and[1] = ~0ull;
+  }
+  __syncthreads();
+
+  // 1. the valid entries, in any order (the sort orders them), placed by
+  // a warp ballot and one shared atomicAdd per warp.
+  Bits o{0, 0}, a{~0ull, ~0ull};
+  for (int i0 = 0; i0 < n; i0 += kThreads) {
+    const int i = i0 + tid;
+    E v{};
+    bool on = false;
+    if (i < n) {
+      v = D::load(a_hi, a_lo, w_hi, w_lo, i);
+      on = !D::invalid(v);
+    }
+    const unsigned m = __ballot_sync(kFullMask, on);
+    if (m == 0u) continue;
+    int at = 0;
+    if (lane == 0) at = atomicAdd(&s_live, __popc(m));
+    at = __shfl_sync(kFullMask, at, 0) + __popc(m & below);
+    if (on) {
+      one_put(A, GA, at, v);
+      const Bits b = bits_of(v);
+      o.hi |= b.hi;
+      o.lo |= b.lo;
+      a.hi &= b.hi;
+      a.lo &= b.lo;
+    }
+  }
+  block_or_and(o, a, s_or, s_and);
+  int live = s_live;
+  E* src = A;
+  E* dst = B;
+  // Keep words: the histograms while the entries fit in shared memory.
+  uint32_t* kw = reinterpret_cast<uint32_t*>(&hist[0][0]);
+  int path = kOnePathShared;
+  if (live > S) {
+    for (int i = tid; i < S; i += kThreads) GA[i] = A[i];
+    src = GA;
+    dst = GB;
+    kw = reinterpret_cast<uint32_t*>(GB + n);
+    path = kOnePathDevice;
+    __syncthreads();
+  }
+
+  // 2. the sort of the entries.
+  {
+    const Bits vary{s_or[0] ^ s_and[0], s_or[1] ^ s_and[1]};
+    E* out = one_sort(src, dst, live, vary, hist, warp_sums);
+    if (out != src) {
+      dst = src;
+      src = out;
+    }
+  }
+
+  // 3. the prune rounds; the last writes the survivors' full keys.
+  F* full = reinterpret_cast<F*>(dst);
+  int total = 0;
+  Bits fo{0, 0}, fa{~0ull, ~0ull};
+  for (int r = 0; r < rounds; ++r) {
+    const int span = one_span(live);
+    const int lo = min(live, warp * span);
+    const int hi = min(live, lo + span);
+    int wc = 0;
+    for (int g = lo; g < hi; g += 32) {
+      const int i = g + lane;
+      const unsigned m =
+          __ballot_sync(kFullMask, i < hi && one_keep(src, i, chain));
+      if (lane == 0) kw[g >> 5] = m;
+      wc += __popc(m);
+    }
+    if (lane == 0) warp_sums[warp] = wc;
+    __syncthreads();
+    if (warp == 0) {
+      int v = warp_sums[lane];
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(kFullMask, v, d);
+        if (lane >= d) v += u;
+      }
+      warp_sums[lane] = v;
+    }
+    if (r + 1 == rounds && tid == 0) {
+      s_or[0] = s_or[1] = 0ull;
+      s_and[0] = s_and[1] = ~0ull;
+    }
+    __syncthreads();
+    total = warp_sums[31];
+    int rank = warp > 0 ? warp_sums[warp - 1] : 0;
+    for (int g = lo; g < hi; g += 32) {
+      const int i = g + lane;
+      const unsigned m = kw[g >> 5];
+      if ((m >> lane) & 1u) {
+        const int k = rank + __popc(m & below);
+        if (r + 1 < rounds) {
+          dst[k] = src[i];
+        } else {
+          const F f = D::full(src[i], cmask, rmask);
+          full[k] = f;
+          const Bits b = bits_of(f);
+          fo.lo |= b.lo;
+          fa.lo &= b.lo;
+        }
+      }
+      rank += __popc(m);
+    }
+    if (r + 1 < rounds) {
+      __syncthreads();
+      E* t = src;
+      src = dst;
+      dst = t;
+      full = reinterpret_cast<F*>(dst);
+      live = total;
+    }
+  }
+  fa.hi = 0;
+  block_or_and(fo, fa, s_or, s_and);
+
+  // 4. the full keys' sort and the output.
+  const Bits fvary{0, s_or[1] ^ s_and[1]};
+  const F* sorted =
+      one_sort(full, reinterpret_cast<F*>(src), total, fvary, hist, warp_sums);
+  for (int i = tid; i < cap; i += kThreads) {
+    store_key(out_hi, out_lo, i, i < total ? sorted[i] : ~F(0));
+  }
+  if (tid == 0) {
+    flags[0] = total < cap ? total : cap;
+    flags[1] = total > cap ? 1 : 0;
+    flags[2] = path;
+  }
+}
+
+template <typename E>
+int dom_one_launch(const uint32_t* a_hi, const uint32_t* a_lo,
+                   const uint32_t* w_hi, const uint32_t* w_lo, int n, int cap,
+                   int chain, int rounds, uint64_t cmask, uint64_t rmask,
+                   uint32_t* out_hi, uint32_t* out_lo, int32_t* flags,
+                   void* scratch, cudaStream_t st) {
+  if (n > OneOf<E>::kSharedN && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      dom_one_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kOneSharedBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dom_one_kernel<E><<<1, kThreads, kOneSharedBytes, st>>>(
+      a_hi, a_lo, w_hi, w_lo, n, cap, chain, rounds, cmask, rmask, out_hi,
+      out_lo, flags, static_cast<E*>(scratch));
+  ++dom_kernel_launches;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1010,6 +1477,7 @@ int psort_dedup_dom_launch(const void* a, const void* w, uint32_t cmask,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint64_t* e = static_cast<uint64_t*>(e0);
+  ++dom_kernel_launches;
   dom_load1<<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(w), n,
       n_pad, e);
@@ -1036,6 +1504,7 @@ int psort_dedup2_dom_launch(const void* a_hi, const void* a_lo,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   U128* e = static_cast<U128*>(e0);
+  ++dom_kernel_launches;
   dom_load2<<<(n_pad + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       static_cast<const uint32_t*>(a_hi), static_cast<const uint32_t*>(a_lo),
       static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
@@ -1048,6 +1517,43 @@ int psort_dedup2_dom_launch(const void* a_hi, const void* a_lo,
       static_cast<uint64_t*>(full), static_cast<uint32_t*>(out_hi),
       static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(flags), st);
 }
+
+// Pair keys in one launch (n up to kDomMaxN, any n_pad). Device
+// pointers: a_hi, a_lo, w_hi, w_lo u32[n], scratch of 2 n 16-byte
+// entries and n / 32 + 1 keep words when n exceeds
+// psort_dom_one_shared_max_n(1), else unused and may be null,
+// out_hi, out_lo u32[cap], flags i32[3] = {min(total, cap), total > cap,
+// path} (path bit 0: the entries were sorted in shared memory, bit 1: in
+// the device-memory scratch).
+int psort_dedup2_dom_one_launch(const void* a_hi, const void* a_lo,
+                                const void* w_hi, const void* w_lo,
+                                uint32_t cmask_hi, uint32_t cmask_lo,
+                                uint32_t rmask_hi, uint32_t rmask_lo, int n,
+                                int cap, int chain, int rounds, void* scratch,
+                                void* out_hi, void* out_lo, void* flags,
+                                void* stream) {
+  if (n < 1 || n > kDomMaxN || cap < 1 || chain < 0 || rounds < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint64_t cmask = (static_cast<uint64_t>(cmask_hi) << 32) | cmask_lo;
+  const uint64_t rmask = (static_cast<uint64_t>(rmask_hi) << 32) | rmask_lo;
+  return dom_one_launch<U128>(
+      static_cast<const uint32_t*>(a_hi), static_cast<const uint32_t*>(a_lo),
+      static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
+      n, cap, chain, rounds, cmask, rmask, static_cast<uint32_t*>(out_hi),
+      static_cast<uint32_t*>(out_lo), static_cast<int32_t*>(flags), scratch,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Valid entries the one-launch dominance dedup sorts in shared memory
+// (pair = 1: 16-byte entries; pair = 0: 8-byte ones).
+int psort_dom_one_shared_max_n(int pair) {
+  return pair ? OneOf<U128>::kSharedN : OneOf<uint64_t>::kSharedN;
+}
+
+// Kernels launched by the dominance dedups since the library was loaded:
+// one a call on the one-launch path.
+long long psort_dom_kernel_launches() { return dom_kernel_launches; }
 
 // int32 words of the dedup's scratch for n keys of key_bytes (4 or 8).
 int psort_dedup_scratch_words(int n, int key_bytes) {

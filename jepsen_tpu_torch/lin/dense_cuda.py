@@ -24,6 +24,10 @@ from jepsen_tpu_torch import _build, _u32
 
 MAX_W = 20
 MAX_NS = 32
+# Widest bitmap the bit-sliced kernel keeps in shared memory (kSharedMaxW
+# in csrc/dense_chunk.cu): 32 state slices of 2**(w - 5) words, 4 * 2**w
+# bytes, 128 KiB at w = 15. Wider ones run the device-memory kernel.
+SHARED_MAX_W = 15
 
 # Kernel launches since import (or since a caller reset it): one per
 # launch of the CUDA kernel, none for the plain version.
@@ -116,6 +120,15 @@ def _load():
         lib.dense_chunk_shared_max_w.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_path(w: int) -> str:
+    """The kernel a chunk of width ``w`` runs: "sliced" (the bitmap as
+    state slices in shared memory) up to :data:`SHARED_MAX_W`, else
+    "device" (the bitmap in device memory)."""
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"dense_chunk takes 1 <= w <= {MAX_W}, got {w}")
+    return "sliced" if w <= SHARED_MAX_W else "device"
 
 
 def shared_max_w() -> int:

@@ -63,6 +63,16 @@ DOM_ITERS = 2
 # The dominance kernels take every size the engine gives them (the host
 # caps reach 524288 x (1 + M) candidates).
 DOM_MAX_N = 1 << 26
+# The pair dominance dedup runs in one launch up to this padded size (the
+# in-chunk tiers 256 .. 4,096 at M 32), set on the H100 (chip_smoke.py
+# phase 19: the one launch against the multi-launch chain on the pair
+# crash-dom headline's candidates at each tier, every candidate valid,
+# and random keys at the gate). One block sorts a call's valid entries,
+# which beats the chain's 14 or more launches while they are few (the
+# headline's fullest calls hold 168 .. 1,809) and loses to its 132 SMs
+# on dense random keys; larger calls, the upper tiers and the host-row
+# executor's caps, keep the multi-launch chain.
+DOM_ONE_MAX_N = 1 << 18
 
 # Kernel launches since import (or since a caller reset them): one per
 # launch of each CUDA kernel, none for the plain versions.
@@ -303,6 +313,13 @@ def _dom_rounds(n: int, force: bool, iters: int) -> tuple[int, int]:
     return 1, len(window)
 
 
+def dom_one_launch(n: int) -> bool:
+    """Route of an n-entry pair dominance dedup on the card: one launch
+    while its padded size is at most :data:`DOM_ONE_MAX_N`, else the
+    multi-launch chain."""
+    return pad_size(n) <= DOM_ONE_MAX_N
+
+
 def _check_dom(words, cap: int, what: str) -> None:
     _check(words[0], cap, what)
     for t in words[1:]:
@@ -460,10 +477,15 @@ def dedup_keys2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor,
     _dom_kernel_args(words, "dedup_keys2_dom")
     from jepsen_tpu_torch.lin import psort_cuda
 
-    rounds, chain = _dom_rounds(a_lo.numel(), force, iters)
-    out_hi, out_lo, flags = psort_cuda.dedup2_dom(
-        *words, cmask_hi, cmask_lo, rmask_hi, rmask_lo, cap,
-        pad_size(a_lo.numel()), chain, rounds)
+    n = a_lo.numel()
+    rounds, chain = _dom_rounds(n, force, iters)
+    masks = (cmask_hi, cmask_lo, rmask_hi, rmask_lo)
+    if dom_one_launch(n):
+        out_hi, out_lo, flags = psort_cuda.dedup2_dom_one(
+            *words, *masks, cap, chain, rounds)
+    else:
+        out_hi, out_lo, flags = psort_cuda.dedup2_dom(
+            *words, *masks, cap, pad_size(n), chain, rounds)
     LAUNCHES["dedup_keys2_dom"] += 1
     return out_hi, out_lo, flags[0], flags[1] != 0
 

@@ -11,7 +11,10 @@ Keys are raw int32 tensors read as ``uint32_t``
 (:mod:`jepsen_tpu_torch._u32`); the pair kernels sort ``uint64_t`` keys
 ``hi << 32 | lo`` in an int64 scratch buffer. The dedups' int32 scratch
 (look-back status words, histograms, tickets and the pass plan) is sized
-by the library itself (``psort_dedup_scratch_words``).
+by the library itself (``psort_dedup_scratch_words``). The pair
+dominance dedup has two routes, which its wrapper chooses from n_pad:
+one launch (:func:`dedup2_dom_one`) or the multi-launch chain
+(:func:`dedup2_dom`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,14 @@ import torch
 from jepsen_tpu_torch import _build
 
 _lib = None
+# Bits of the one-launch dominance dedup's path word: its valid entries
+# were sorted in shared memory, or in the device-memory scratch.
+PATH_SHARED, PATH_DEVICE = 1, 2
+# The route of the latest pair dominance dedup ("one" or "multi") and,
+# for "one", its path word (int32[1] on the card), for checks that every
+# path ran.
+last_dom_route = None
+last_dom_path = None
 
 
 def _load():
@@ -51,6 +62,14 @@ def _load():
                                                 i, i, i, i, p, p, p, p, p,
                                                 p, p, p, p]
         lib.psort_dedup2_dom_launch.restype = i
+        lib.psort_dedup2_dom_one_launch.argtypes = [p, p, p, p, u, u, u, u,
+                                                    i, i, i, i, p, p, p, p,
+                                                    p]
+        lib.psort_dedup2_dom_one_launch.restype = i
+        lib.psort_dom_one_shared_max_n.argtypes = [i]
+        lib.psort_dom_one_shared_max_n.restype = i
+        lib.psort_dom_kernel_launches.argtypes = []
+        lib.psort_dom_kernel_launches.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -156,6 +175,30 @@ def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
     return out_hi, out_lo, count
 
 
+def dom_kernel_launches() -> int:
+    """Kernels the dominance dedups have launched since the library was
+    loaded: one a call on the one-launch path, 14 or more on the
+    multi-launch path."""
+    return int(_load().psort_dom_kernel_launches())
+
+
+def dom_one_shared_max_n(pair: bool = True) -> int:
+    """Valid entries the one-launch dominance dedup sorts in shared
+    memory; a call with more sorts in its device-memory scratch."""
+    return int(_load().psort_dom_one_shared_max_n(int(pair)))
+
+
+def dom_one_scratch_words(n: int, pair: bool, shared_n: int) -> int:
+    """int64 words of the one-launch dominance dedup's device scratch for
+    n entries: two entry buffers of n entries (two words each for pairs)
+    and n // 32 + 1 int32 keep words where n exceeds ``shared_n``
+    (:func:`dom_one_shared_max_n`: the valid entries may not fit in shared
+    memory), else one unused word."""
+    if n <= shared_n:
+        return 1
+    return 2 * n * (2 if pair else 1) + (n // 32 + 2) // 2
+
+
 def _dom_scratch(n_pad: int, entry_words: int, full_dtype, dev):
     """The dominance dedup's scratch: two entry buffers (``entry_words``
     int64 words an entry), the keep flags, the block counts and the full
@@ -191,9 +234,10 @@ def dedup2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,
                w_lo: torch.Tensor, cmask_hi: int, cmask_lo: int,
                rmask_hi: int, rmask_lo: int, cap: int, n_pad: int,
                chain: int, rounds: int):
-    """Launch the pair-key dominance dedup. Returns (hi int32[cap], lo
-    int32[cap], flags int32[2] = (count, overflow)) on the keys'
-    device."""
+    """Launch the pair-key dominance dedup's multi-launch chain. Returns
+    (hi int32[cap], lo int32[cap], flags int32[2] = (count, overflow)) on
+    the keys' device."""
+    global last_dom_route, last_dom_path
     lib = _load()
     n = a_lo.numel()
     dev = a_lo.device
@@ -211,4 +255,35 @@ def dedup2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,
             full.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(),
             flags.data_ptr(), _stream(a_lo))
     _raise_on(rc, "psort dedup_keys2_dom", n=n, n_pad=n_pad, cap=cap)
+    last_dom_route, last_dom_path = "multi", None
     return out_hi, out_lo, flags
+
+
+def dedup2_dom_one(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                   w_hi: torch.Tensor, w_lo: torch.Tensor, cmask_hi: int,
+                   cmask_lo: int, rmask_hi: int, rmask_lo: int, cap: int,
+                   chain: int, rounds: int):
+    """Launch the pair-key dominance dedup in one launch. Returns (hi
+    int32[cap], lo int32[cap], flags int32[2] = (count, overflow)) on the
+    keys' device and sets :data:`last_dom_path`."""
+    global last_dom_route, last_dom_path
+    lib = _load()
+    n = a_lo.numel()
+    dev = a_lo.device
+    scratch = torch.empty(
+        dom_one_scratch_words(n, True, dom_one_shared_max_n(True)),
+        dtype=torch.int64, device=dev)
+    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    words = torch.empty(3, dtype=torch.int32, device=dev)
+    m = 0xFFFFFFFF
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup2_dom_one_launch(
+            a_hi.data_ptr(), a_lo.data_ptr(), w_hi.data_ptr(),
+            w_lo.data_ptr(), cmask_hi & m, cmask_lo & m, rmask_hi & m,
+            rmask_lo & m, n, cap, chain, rounds, scratch.data_ptr(),
+            out_hi.data_ptr(), out_lo.data_ptr(), words.data_ptr(),
+            _stream(a_lo))
+    _raise_on(rc, "psort dedup_keys2_dom (one launch)", n=n, cap=cap)
+    last_dom_route, last_dom_path = "one", words[2:]
+    return out_hi, out_lo, words[:2]

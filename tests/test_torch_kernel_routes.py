@@ -1,0 +1,236 @@
+"""The host side of the dense kernel's and the pair dominance dedup's
+routes, which the CPU can check without the card: which kernel a chunk
+width takes and what shared memory it asks for, the dominance dedup's
+choice between its one-launch and multi-launch paths by padded size, each
+path's scratch sizing, the launchers' limits, and that a tensor on a
+device without a kernel raises instead of falling back. The inputs
+``chip_smoke.py`` adds for the one-launch path (one group dominated only
+at distance 128, every entry equal) are held against the reference's lax
+dominance dedup here, bit for bit (tolerance 0: the keys are
+integers)."""
+
+import functools
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu.lin import bfs as jbfs
+from jepsen_tpu_torch import _u32
+from jepsen_tpu_torch.lin import bfs as tbfs
+from jepsen_tpu_torch.lin import dense_cuda, psort, psort_cuda
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the card's inputs, built by numpy alone)
+
+FILL = 0xFFFFFFFF
+# Valid 16-byte entries the one-launch path sorts in shared memory
+# (psort_dom_one_shared_max_n(1) in csrc/psort.cu: 96 KiB a buffer).
+SHARED_PAIRS = 6144
+# The in-chunk row tiers' dominance dedups at M = 32: tier * 33 entries.
+M = 32
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# --- the dense kernel --------------------------------------------------------
+
+# Shared memory a block may take on the H100 (the opt-in maximum), and
+# the sliced kernel's static share (15 x 32 masks and the targets).
+BLOCK_SHARED_BYTES = 232_448
+SLICED_STATIC_BYTES = 2 * 1024
+
+
+@pytest.mark.parametrize("w", range(1, dense_cuda.MAX_W + 1))
+def test_dense_kernel_path_by_width(w):
+    """Up to SHARED_MAX_W the bitmap fits a block's shared memory as 32
+    state slices (4 * 2^w bytes, at least a word a slice) with one
+    thread a slice word, at most 1024; from the next width it does not,
+    and the device-memory kernel takes it."""
+    path = dense_cuda.kernel_path(w)
+    fits = 4 * max(1 << w, 32) + SLICED_STATIC_BYTES <= BLOCK_SHARED_BYTES \
+        and max(32, 1 << max(w - 5, 0)) <= 1024
+    assert path == ("sliced" if w <= dense_cuda.SHARED_MAX_W else "device")
+    assert fits == (path == "sliced")
+
+
+def test_dense_headline_widths_take_the_sliced_kernel():
+    from jepsen_tpu_torch.lin import dense
+
+    # The dense headline's chunks run at w 14, its wide history at 16.
+    assert [dense_cuda.kernel_path(w) for w in (13, 14, 16)] == \
+        ["sliced", "sliced", "device"]
+    # Every width bucket of the dense engine takes one of the two.
+    assert {dense_cuda.kernel_path(b) for b in dense._W_BUCKETS} == \
+        {"sliced", "device"}
+    with pytest.raises(ValueError):
+        dense_cuda.kernel_path(dense_cuda.MAX_W + 1)
+
+
+def test_dense_chunk_raises_without_a_kernel():
+    """A tensor on a device that is neither the CPU nor a card raises;
+    nothing falls back to the plain version."""
+    w, ns = 4, 8
+    F = torch.zeros(1 << w, dtype=torch.int32, device="meta")
+    masks = torch.zeros(2, w, ns, dtype=torch.int32, device="meta")
+    ret = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dense_cuda.dense_chunk(F, 2, masks, ret, w=w, ns=ns)
+    cpu = torch.zeros(1 << 21, dtype=torch.int32)
+    no_rows = torch.zeros(0, 21, ns, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        dense_cuda.dense_chunk(cpu, 0, no_rows,
+                               torch.zeros(0, dtype=torch.int32), w=21, ns=ns)
+
+
+# --- the pair dominance dedup's routes ---------------------------------------
+
+@pytest.mark.parametrize("tier", tbfs.ROW_TIERS)
+def test_dom_route_of_each_in_chunk_tier(tier):
+    n = tier * (1 + M)
+    one = psort.pad_size(n) <= psort.DOM_ONE_MAX_N
+    assert psort.dom_one_launch(n) == one
+    # The tiers the pair crash-dom headline runs most (256 .. 4096) take
+    # the one launch.
+    assert one == (tier <= 4096)
+
+
+@pytest.mark.parametrize("cap", [262_144, 524_288])
+def test_dom_host_caps_keep_the_multi_launch_chain(cap):
+    n = cap * (1 + M)
+    assert not psort.dom_one_launch(n)
+    assert psort.pad_size(n) <= psort.DOM_MAX_N
+
+
+def test_dom_gate_is_a_power_of_two_inside_the_kernels_limit():
+    g = psort.DOM_ONE_MAX_N
+    assert g & (g - 1) == 0 and psort.MIN_N <= g <= psort.DOM_MAX_N
+    assert psort.dom_one_launch(g) and not psort.dom_one_launch(g + 1)
+
+
+@pytest.mark.parametrize("n", [1, 1000, SHARED_PAIRS, SHARED_PAIRS + 1,
+                               8448, 33_792, 135_168, 1 << 18])
+def test_dom_scratch_of_each_path(n):
+    """The one launch needs no device scratch while every entry fits its
+    shared buffers, else two entry buffers of n entries and n / 32 + 1
+    keep words; always less than the multi-launch chain's five buffers
+    of n_pad."""
+    words = psort_cuda.dom_one_scratch_words(n, True, SHARED_PAIRS)
+    if n <= SHARED_PAIRS:
+        assert words == 1
+    else:
+        assert words == 2 * n * 2 + (n // 32 + 2) // 2
+        assert 8 * words >= 2 * 16 * n + 4 * (n // 32 + 1)
+    n_pad = psort.pad_size(n)
+    multi = sum(t.numel() * t.element_size() for t in
+                psort_cuda._dom_scratch(n_pad, 2, torch.int64, "meta"))
+    assert multi == (2 * 16 + 1 + 8) * n_pad + 4 * (n_pad // 1024 + 1)
+    assert 8 * words < multi
+
+
+def _meta_words(n):
+    return [torch.zeros(n, dtype=torch.int32, device="meta")
+            for _ in range(4)]
+
+
+def test_dom_wrapper_raises_without_a_kernel():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        psort.dedup_keys2_dom(*_meta_words(1024), 0, 0, 0, 0, 256,
+                              force=True)
+
+
+@pytest.mark.parametrize("n,route", [(8448, "one"), (1 << 18, "one"),
+                                     ((1 << 18) + 1, "multi"),
+                                     (262_144 * 33, "multi")])
+def test_dom_wrapper_routes_by_padded_size(monkeypatch, n, route):
+    """The wrapper sends each call to one launcher by n_pad, with the
+    rounds and chain of its mode, and counts one launch a call."""
+    calls = []
+
+    def one(*args):
+        calls.append(("one", args[8:]))
+        return None, None, torch.zeros(2, dtype=torch.int32)
+
+    def multi(*args):
+        calls.append(("multi", args[8:]))
+        return None, None, torch.zeros(2, dtype=torch.int32)
+
+    monkeypatch.setattr(psort, "_dom_kernel_args", lambda *a: None)
+    monkeypatch.setattr(psort_cuda, "dedup2_dom_one", one)
+    monkeypatch.setattr(psort_cuda, "dedup2_dom", multi)
+    before = psort.LAUNCHES["dedup_keys2_dom"]
+    psort.dedup_keys2_dom(*_meta_words(n), 0, 0, 0, 0, 256, force=True,
+                          iters=6)
+    assert psort.LAUNCHES["dedup_keys2_dom"] == before + 1
+    want = (256, psort.DOM_CHAIN, 6) if route == "one" else \
+        (256, psort.pad_size(n), psort.DOM_CHAIN, 6)
+    assert calls == [(route, want)]
+
+
+# --- the card's new inputs against the reference ---------------------------
+
+MODES = ((True, 2), (True, 6), (False, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dom(n, force, iters):
+    return jax.jit(lambda hi, lo, valid, *m: jbfs._dedup_keys2_dom(
+        hi, lo, valid, n, *m, use_psort=False, dom_force=force,
+        dom_iters=iters))
+
+
+def _case(label):
+    rng = np.random.default_rng(91)
+    cases = {c[0]: c for c in chip_smoke.dom_pair_cases(rng, SHARED_PAIRS)}
+    return cases[label]
+
+
+@pytest.mark.parametrize("label,want", [("chain-128", [128, 128, 255]),
+                                        ("every-entry-equal", [1, 1, 1])])
+def test_card_inputs_match_the_reference(label, want):
+    _, key, valid, cap, _, counts = _case(label)
+    assert counts == want
+    cmask, rmask = chip_smoke.DOM_MASKS[True]
+    mw = chip_smoke.dom_mask_words(True, cmask, rmask)
+    hi = (key >> np.uint64(32)).astype(np.uint32)
+    lo = key.astype(np.uint32)
+    v = torch.from_numpy(valid)
+    words = tbfs._dom_split2(_u32.bitmap_from_numpy(hi, "cpu"),
+                             _u32.bitmap_from_numpy(lo, "cpu"), v, *mw)
+    got_counts = []
+    for force, iters in MODES:
+        got = psort.dedup_keys2_dom_plain(*words, *mw, cap, force=force,
+                                          iters=iters)
+        out = _jax_dom(key.size, force, iters)(
+            jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid),
+            *(jnp.uint32(x) for x in mw))
+        *ref, total, _ = (np.asarray(x) for x in out)
+        assert min(int(total), cap) == int(got[-2])
+        assert (int(total) > cap) == bool(got[-1])
+        for g, r in zip(got[:2], ref):
+            g = _u32.bitmap_to_numpy(g)
+            r = r[:cap]
+            assert np.array_equal(g[:r.size], r)
+            assert (g[r.size:] == FILL).all()
+        got_counts.append(int(got[-2]))
+    assert got_counts == want
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_card_capacity_inputs_straddle_the_shared_path(which):
+    label, key, valid, cap, routes, path = _case(
+        f"live={SHARED_PAIRS - 1 + which}")
+    assert int(valid.sum()) == SHARED_PAIRS - 1 + which
+    assert path == ("device" if which == 2 else "shared")
+    assert routes == ("gate", "multi")
+    assert psort.dom_one_launch(key.size)
