@@ -59,7 +59,12 @@ raises on a failure:
     must hold in the run;
 11. the pair-key kernels vs their plain versions on the card,
     bit-exact: ``dedup_keys2`` at the sizes of phase 7 and
-    ``compact_keys2`` at n = 2^10 ... 2^19 and 1,500 (equal hi with
+    ``compact_keys2`` at n = 2^10 ... 2^19 and 1,500 through both of its
+    routes (one launch, bitonic network; ascending with holes, arbitrary,
+    more live pairs than cap, a descent in the last live pair, a live
+    pair whose hi word is KEY_FILL), which must run the one launch's
+    ordered path and both of its sorted paths (shared, device memory)
+    (dedup inputs: equal hi with
     different lo, lo's bit 31 as payload, holes, duplicates, all valid,
     all invalid, every pair equal, exactly cap and cap + 1 survivors, one
     pair apart in hi's bit 30 or in lo's bit 31, overflowing caps), and
@@ -71,25 +76,31 @@ raises on a failure:
 12. the pair headline: a 5k-op, concurrency-30 CAS-register history
     (window 29, past one u32 key) through ``checker.linearizable``,
     valid by ``gpu-bfs`` with every pair kernel launched and its known
-    launch and fetch counts, then a timed device check, as in phase 8;
+    launch and fetch counts, then a timed device check, as in phase 8,
+    which counts ``compact_keys2``'s calls by path and records the
+    inputs of a few spike compactions (past the compaction gate);
 13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
 14. each pair kernel's time beside its plain version, one PyTorch call
     and its bound, at the pair headline's most frequent shapes, the pair
     ``fixpoint`` at every fused tier and at tier 16,384 beside the unfused
-    chain, and ``dedup_keys2`` at the spike sizes as in phase 10;
+    chain, ``dedup_keys2`` at the spike sizes as in phase 10, and
+    ``compact_keys2`` through each route at every size of phase 11 on
+    ascending-with-holes and arbitrary input, and in one launch against
+    the engine's torch.sort on the recorded spike compactions (the
+    measurements behind ``psort.COMPACT2_ONE_MAX_N``);
 15. the dominance dedups of the crash-dom bands vs their plain versions
     on the card, bit-exact: ``dedup_keys_dom`` and ``dedup_keys2_dom`` in
     forced mode at 2 and 6 rounds and unforced, at padded sizes 2^10 ...
     2^22, 2^24 and 2^25 (the host caps 262,144 and 524,288 x 33
     candidates), on mixed, all-invalid and long-chain inputs and on
-    candidates expanded from the crash-dom headlines' own rows; for
-    ``dedup_keys2_dom`` also valid counts just below, at and just above
-    its one-launch path's shared capacity, one group whose entries are
-    dominated only at distance 128, and every entry equal, through both
-    of its routes; each of its paths (one launch sorting in shared or
-    device memory, the multi-launch chain) must run;
+    candidates expanded from the crash-dom headlines' own rows, and on
+    valid counts just below, at and just above each one-launch path's
+    shared capacity (6,144 pairs, 12,288 single-key entries), one group
+    whose entries are dominated only at distance 128, and every entry
+    equal, through both routes; each dedup's paths (one launch sorting
+    in shared or device memory, the multi-launch chain) must all run;
 16. the single-key crash-dom headline: a 5k-op partition-nemesis history
     at config 5's pacing (window 25, crashed mutators) through
     ``checker.linearizable(algorithm="gpu")``, valid by ``gpu-bfs`` with
@@ -97,18 +108,19 @@ raises on a failure:
     per kernel call;
 17. the pair-key crash-dom headline: the same at 20k ops (window 38,
     two-word bitsets, rows in the host-row executor), valid by
-    ``gpu-bfs`` with ``dedup_keys2_dom`` launched, then a clean device
-    check;
+    ``gpu-bfs`` with ``dedup_keys2_dom`` launched (its run through the
+    entry point is its clean run: a second would not fit the script's
+    time limit);
 18. the host-row executor on the card: the window-34 partition history at
     chunk cap 8 and host caps (64, 4096), valid with host rows run, and
     corrupted, invalid on the same op and dead row as the CPU oracle with
     final paths;
-19. each dominance dedup's time per call at its headline's most frequent
-    shape, beside its plain version's and its bound; ``dedup_keys2_dom``
-    at every in-chunk tier of its headline, through its route and each
-    route forced, and both routes on random keys at the gate (the
-    measurements behind ``psort.DOM_ONE_MAX_N``), with its launches per
-    call.
+19. each dominance dedup's time per call at every in-chunk tier of its
+    headline, through its route and each route forced, beside its plain
+    version's and its bound, every candidate valid through both routes,
+    and both routes on random keys at the gate (the measurements behind
+    ``psort.DOM1_ONE_MAX_N`` and ``psort.DOM_ONE_MAX_N``), with its
+    launches per call.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -455,11 +467,77 @@ def pair_inputs(rng, n):
     return dedup, compact
 
 
+def compact2_cases(rng, n):
+    """Seeded (label, hi, lo, cap) cases of the pair compaction at size n
+    that the one launch must tell apart: ascending with holes and more
+    live pairs than cap; ascending but for a descent in the last live
+    pair (so the whole input must be sorted); ascending with the last
+    live pair's hi word KEY_FILL (live, as its lo is not)."""
+    import numpy as np
+
+    def holes():
+        k = np.unique(rng.integers(0, 1 << 61, 2 * n, dtype=np.uint64))
+        k = k[:n] * np.uint64(2)                       # sorted, even
+        gone = rng.random(n) < 0.3
+        gone[0] = False                                # a live pair
+        k[gone] = (1 << 64) - 1
+        return k
+
+    def split(k):
+        return (k >> np.uint64(32)).astype(np.uint32), \
+            (k & np.uint64(FILL)).astype(np.uint32)
+
+    more = holes()
+    live = int((more != np.uint64((1 << 64) - 1)).sum())
+    down = holes()
+    at = np.flatnonzero(down != np.uint64((1 << 64) - 1))
+    down[at[-1]] = down[at[-2]] - np.uint64(1)         # odd: distinct
+    top = holes()
+    top[np.flatnonzero(top != np.uint64((1 << 64) - 1))[-1]] = \
+        np.uint64((FILL << 32) | 5)
+    return [("ascending, live > cap", *split(more), max(live // 2, 1)),
+            ("descent in the last live pair", *split(down), n),
+            ("live pair with hi KEY_FILL", *split(top), n)]
+
+
+def compact_path() -> str:
+    """The path of the latest ``compact_keys2`` on the card: "bitonic"
+    (the network), or the one launch's "ordered" (no sort), "shared" or
+    "device" (sorted in shared or device memory) from its path word."""
+    from jepsen_tpu_torch.lin import psort_cuda
+
+    if psort_cuda.last_compact_route != "one":
+        return "bitonic"
+    return {psort_cuda.PATH_ORDERED: "ordered",
+            psort_cuda.PATH_SHARED: "shared",
+            psort_cuda.PATH_DEVICE: "device"}[
+                int(psort_cuda.last_compact_path)]
+
+
+@contextlib.contextmanager
+def compact_route(route: str):
+    """``compact_keys2``'s route while inside: "gate" (by
+    ``psort.COMPACT2_ONE_MAX_N``), "one" (one launch up to its limit) or
+    "bitonic" (the network)."""
+    from jepsen_tpu_torch.lin import psort
+
+    saved = psort.COMPACT2_ONE_MAX_N
+    psort.COMPACT2_ONE_MAX_N = {"gate": saved,
+                                "one": psort.COMPACT2_ONE_LIMIT,
+                                "bitonic": 0}[route]
+    try:
+        yield
+    finally:
+        psort.COMPACT2_ONE_MAX_N = saved
+
+
 def check_sort_kernels(dev, pair: bool) -> int:
     """Phase 7a / 11a: dedup_keys (``pair``: dedup_keys2) against its
     plain version at every size of DEDUP_SIZES, compact_keys (or
-    compact_keys2) at every size of COMPACT_SIZES. Returns the max word
-    error (0, or it raises)."""
+    compact_keys2, through both of its routes, also on
+    :func:`compact2_cases`) at every size of COMPACT_SIZES. On the card
+    ``compact_keys2`` must run its ordered path and both sorted paths.
+    Returns the max word error (0, or it raises)."""
     import numpy as np
     import torch
 
@@ -472,39 +550,56 @@ def check_sort_kernels(dev, pair: bool) -> int:
     rng = np.random.default_rng(79 if pair else 77)
     tag = "2" if pair else ""
     max_err = 0
+    paths = {}
     for n in DEDUP_SIZES:
         flags = []
         if pair:
             dedup, compact = pair_inputs(rng, n)
             runs = [("dedup_keys2", psort.dedup_keys2,
                      psort.dedup_keys2_plain,
-                     (t(h), t(lo), torch.from_numpy(v).to(dev), cap))
+                     (t(h), t(lo), torch.from_numpy(v).to(dev), cap), None)
                     for h, lo, v, cap in dedup]
-            runs += [("compact_keys2", psort.compact_keys2,
-                      psort.compact_keys2_plain, (t(h), t(lo), cap))
-                     for h, lo, cap in compact if n in COMPACT_SIZES]
+            if n in COMPACT_SIZES:
+                compact += [c[1:] for c in compact2_cases(rng, n)]
+                runs += [("compact_keys2", psort.compact_keys2,
+                          psort.compact_keys2_plain, (t(h), t(lo), cap),
+                          route)
+                         for h, lo, cap in compact
+                         for route in ("one", "bitonic")]
         else:
             dedup, compact = sort_inputs(rng, n)
             runs = [("dedup_keys", psort.dedup_keys, psort.dedup_keys_plain,
-                     (t(k), torch.from_numpy(v).to(dev), cap))
+                     (t(k), torch.from_numpy(v).to(dev), cap), None)
                     for k, v, cap in dedup]
             runs += [("compact_keys", psort.compact_keys,
-                      psort.compact_keys_plain, (t(k), cap))
+                      psort.compact_keys_plain, (t(k), cap), None)
                      for k, cap in compact if n in COMPACT_SIZES]
-        for name, kern_fn, plain_fn, args in runs:
-            kern = kern_fn(*args)
+        for name, kern_fn, plain_fn, args, route in runs:
+            with compact_route(route or "gate"):
+                kern = kern_fn(*args)
+            if route and dev.type == "cuda":
+                p = compact_path()
+                paths[p] = paths.get(p, 0) + 1
+                flags.append(f"{route}:{p}")
             plain = plain_fn(*args)
             torch.cuda.synchronize()
             same, err = same_outputs(kern, plain)
             max_err = max(max_err, err)
             if not same:
                 raise AssertionError(f"{name} != plain at n={n} cap="
-                                     f"{args[-1]}, error {err}")
+                                     f"{args[-1]} (route {route}), error "
+                                     f"{err}")
             dedup_run = name.startswith("dedup")
             cnt = int(kern[-2] if dedup_run else kern[-1])
             flags.append(f"{cnt}{'+' if dedup_run and bool(kern[-1]) else ''}")
         log(f"[sort{tag}-vs-plain] n={n:7d} bit_exact=True counts (dedup+ = "
-            f"overflow; then compact) {' '.join(flags)}")
+            f"overflow; then compact, after its route:path) "
+            f"{' '.join(flags)}")
+    if pair and dev.type == "cuda":
+        log(f"[compact_keys2-paths] runs by path: {paths}")
+        if not {"ordered", "shared", "device", "bitonic"} <= paths.keys():
+            raise AssertionError(f"compact_keys2 paths run: {paths}, want "
+                                 "ordered, shared, device and bitonic")
     return max_err
 
 
@@ -832,14 +927,14 @@ def reset_launches():
 
 
 def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
-             clean_check: bool = True):
+             clean_check: bool = True, spies=()):
     """A sparse headline through ``checker.linearizable(algorithm="gpu")``
     with the launch counts of ``kernels`` (name -> (module, wrapper)) set
     to 0 just before and read just after; then (``clean_check``) a clean
     device check, and a device check of ``timed_h`` (default: the same
     history) with each kernel call timed by CUDA events behind a spin
-    gate. Returns (result, launches, per-kernel summed ms of the timed
-    check)."""
+    gate, and ``spies`` (context managers) installed. Returns (result,
+    launches, per-kernel summed ms of the timed check)."""
     import torch
 
     from jepsen_tpu_torch import checker
@@ -885,7 +980,7 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
     pt = prepare.prepare(model, timed_h)
     mods = {"psort": psort, "psort_fused": psort_fused}
     timers = [CallTimer(mods[mod], fn) for mod, fn in kernels.values()]
-    for t in timers:
+    for t in (*timers, *spies):
         t.__enter__()
     try:
         t0 = time.perf_counter()
@@ -893,7 +988,7 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
         torch.cuda.synchronize()
         t_timed = time.perf_counter() - t0
     finally:
-        for t in timers:
+        for t in (*timers, *spies):
             t.__exit__()
     if rt["valid?"] is not True:
         raise AssertionError(f"headline timed re-check said {rt['valid?']!r}")
@@ -908,6 +1003,88 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
         + f"; kernels {sum(per_kernel.values()) / (t_timed * 1e3):.1%} of "
         "the timed check")
     return r, launches, per_kernel
+
+
+# Spike compactions (past the compaction gate, which take torch.sort)
+# whose inputs phase 12 records for phase 14.
+SPIKE_COMPACTIONS = 3
+
+
+def dropped_pairs(lo, hi, count: int, s: int, b: int):
+    """The pair return filter's input to its compaction, as the engine
+    builds it (``bfs._filter_pass_keys2``): the survivors with the
+    returner's key bit b + s cleared, KEY_FILL in both words elsewhere.
+    Returns (hi, lo, survivors)."""
+    import torch
+
+    from jepsen_tpu_torch.lin import bfs, psort
+
+    bit_lo, bit_hi = bfs._key_bit(b + s)
+    live = torch.arange(lo.numel(), device=lo.device) < count
+    keep = live & (((lo & bit_lo) | (hi & bit_hi)) != 0)
+    d_hi = torch.where(keep, hi & ~bit_hi, psort.KEY_FILL_RAW).contiguous()
+    d_lo = torch.where(keep, lo & ~bit_lo, psort.KEY_FILL_RAW).contiguous()
+    return d_hi, d_lo, int(keep.sum())
+
+
+class CompactSpy:
+    """While installed: the path of every ``compact_keys2`` call on the
+    card (the one launch's path word, or "bitonic"), and the inputs of
+    the first SPIKE_COMPACTIONS compactions past the compaction gate
+    (the engine's torch.sort), recorded from the return filter."""
+
+    def __init__(self):
+        self.words, self.bitonic, self.spikes = [], 0, []
+
+    def __enter__(self):
+        from jepsen_tpu_torch.lin import bfs, psort, psort_cuda
+
+        one, net, filt = self.saved = (psort_cuda.compact2_one,
+                                       psort_cuda.compact2,
+                                       bfs._filter_pass_keys2)
+
+        def one_spy(*a, **k):
+            out = one(*a, **k)
+            self.words.append(psort_cuda.last_compact_path)
+            return out
+
+        def net_spy(*a, **k):
+            self.bitonic += 1
+            return net(*a, **k)
+
+        def filt_spy(lo, hi, count, s, *, cap, b, n_keep=None):
+            if not psort.available(cap) and \
+                    len(self.spikes) < SPIKE_COMPACTIONS:
+                d_hi, d_lo, kept = dropped_pairs(lo, hi, count, s, b)
+                if kept != count:
+                    self.spikes.append((d_hi, d_lo, cap))
+            return filt(lo, hi, count, s, cap=cap, b=b, n_keep=n_keep)
+
+        psort_cuda.compact2_one, psort_cuda.compact2 = one_spy, net_spy
+        bfs._filter_pass_keys2 = filt_spy
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.lin import bfs, psort_cuda
+
+        psort_cuda.compact2_one, psort_cuda.compact2, \
+            bfs._filter_pass_keys2 = self.saved
+
+    def paths(self) -> dict:
+        """Calls by path."""
+        import torch
+
+        from jepsen_tpu_torch.lin import psort_cuda
+
+        names = {psort_cuda.PATH_ORDERED: "ordered",
+                 psort_cuda.PATH_SHARED: "shared",
+                 psort_cuda.PATH_DEVICE: "device"}
+        out = {"ordered": 0, "shared": 0, "device": 0,
+               "bitonic": self.bitonic}
+        if self.words:
+            for w in torch.cat(self.words).tolist():
+                out[names[w]] += 1
+        return out
 
 
 def counterexample(dev, model, h, seed: int, tag: str):
@@ -1249,9 +1426,21 @@ def shape_times(eng, fronts, stats, pair: bool):
     lib = time_chunk(lambda: torch.sort(key), 50)
     bound, by = sort_bound(c_tier, c_tier, 4 * words, 4 * words)
     out[name] = (ms, plain, lib, bound, by, {"n": c_tier, "cap": c_tier})
-    log(f"[{tag}-time] {name} n={c_tier} (pad {psort.pad_size(c_tier)}): "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.sort {lib:.4f} "
-        f"ms, bound {bound:.6f} ms ({by})")
+    routes = ""
+    if pair:
+        kern(*args)
+        path = compact_path() if dev.type == "cuda" else "plain"
+        for route in ("one", "bitonic"):
+            with compact_route(route):
+                out[name][-1][f"{route}_ms"] = time_chunk(
+                    lambda: kern(*args), 50)
+        out[name][-1]["path"] = path
+        routes = (f" ({path}; one launch {out[name][-1]['one_ms']:.4f} ms, "
+                  f"bitonic {out[name][-1]['bitonic_ms']:.4f} ms)")
+    log(f"[{tag}-time] {name} n={c_tier} (pad {psort.pad_size(c_tier)}, "
+        f"{int(count)} entering, {int((d_lo != psort.KEY_FILL_RAW).sum())} "
+        f"kept): kernel {ms:.4f} ms{routes}, plain {plain:.4f} ms, "
+        f"torch.sort {lib:.4f} ms, bound {bound:.6f} ms ({by})")
 
     # dedup at the most frequent unfused tier: real candidates.
     unfused = dict(stats.get("unfused_tiers", {}))
@@ -1307,6 +1496,73 @@ REPLACES = {"dedup_keys": "jepsen_tpu/lin/psort.py:741",
             "fixpoint_pair": "jepsen_tpu/lin/psort_fused.py:316",
             "dedup_keys_dom": "jepsen_tpu/lin/psort.py:448",
             "dedup_keys2_dom": "jepsen_tpu/lin/psort.py:616"}
+
+
+def compact_times(dev, spikes) -> dict:
+    """Phase 14b: ``compact_keys2`` through each route at every size of
+    COMPACT_SIZES on the engine's input (ascending with holes) and on
+    arbitrary input (phase 11's cases), with the one launch's path; and
+    the one launch against the engine's torch.sort on the pair headline's
+    spike compactions (``spikes``: (hi, lo, cap) recorded by
+    :class:`CompactSpy`), bit-exact. The measurements behind
+    ``psort.COMPACT2_ONE_MAX_N``."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import psort
+
+    rng = np.random.default_rng(81)
+    on_card = dev.type == "cuda"
+    sizes, paths = [], set()
+    for n in COMPACT_SIZES:
+        _, compact = pair_inputs(rng, n)
+        row = {"n": n}
+        for label, (h, lo, cap) in zip(("ascending", "arbitrary"), compact):
+            args = (_u32.bitmap_from_numpy(h, dev),
+                    _u32.bitmap_from_numpy(lo, dev), cap)
+            reps = 20 if n < 1 << 18 else 5
+            with compact_route("one"):
+                psort.compact_keys2(*args)
+                path = compact_path() if on_card else "plain"
+                one = time_chunk(lambda: psort.compact_keys2(*args), reps)
+            with compact_route("bitonic"):
+                net = time_chunk(lambda: psort.compact_keys2(*args), reps)
+            paths.add(path)
+            row[label] = {"path": path, "one_ms": one, "bitonic_ms": net}
+        sizes.append(row)
+        a, r = row["ascending"], row["arbitrary"]
+        log(f"[compact2-route-time] n={n:6d}: ascending with holes "
+            f"({a['path']}) one launch {a['one_ms']:.4f} ms, bitonic "
+            f"{a['bitonic_ms']:.4f} ms; arbitrary ({r['path']}) one launch "
+            f"{r['one_ms']:.4f} ms, bitonic {r['bitonic_ms']:.4f} ms; "
+            f"gate routes it to the "
+            f"{'one launch' if psort.compact2_one_launch(n) else 'bitonic'}")
+    if on_card and paths != {"ordered", "shared", "device"}:
+        raise AssertionError(f"compact_keys2 timing runs took {paths}")
+    spike = []
+    for d_hi, d_lo, cap in spikes:
+        def sort():
+            return _u32.pair_split(torch.sort(_u32.pair_key(d_hi, d_lo))[0])
+
+        with compact_route("one"):
+            got = psort.compact_keys2(d_hi, d_lo, cap)
+            path = compact_path() if on_card else "plain"
+            want = sort()
+            same, err = same_outputs(got[:2], want)
+            if not same or int(got[2]) != int((d_lo != -1).logical_or(
+                    d_hi != -1).sum()):
+                raise AssertionError(f"spike compaction at cap {cap}: the "
+                                     f"one launch != torch.sort, error {err}")
+            one = time_chunk(lambda: psort.compact_keys2(d_hi, d_lo, cap), 10)
+        srt = time_chunk(sort, 10)
+        spike.append({"n": d_lo.numel(), "cap": cap, "live": int(got[2]),
+                      "path": path, "one_ms": one, "torch_sort_ms": srt})
+        log(f"[compact2-spike] n={d_lo.numel()} cap={cap} live="
+            f"{int(got[2])}: one launch ({path}, bit-exact) {one:.4f} ms, "
+            f"the engine's torch.sort {srt:.4f} ms")
+    return {"route_times": sizes, "spike": spike,
+            "gate": psort.COMPACT2_ONE_MAX_N}
 
 
 def kernel_entries(times, launches, errs, per_kernel, extra) -> list:
@@ -1408,14 +1664,20 @@ def pair_phases(dev) -> list:
     kernels = {"dedup_keys2": ("psort", "dedup_keys2"),
                "compact_keys2": ("psort", "compact_keys2"),
                "fixpoint_pair": ("psort_fused", "fixpoint_flags")}
-    # Its run through the entry point is its clean run, as in phase 8.
+    # Its run through the entry point is its clean run, as in phase 8;
+    # its timed run counts compact_keys2's paths and records spike
+    # compactions.
+    spy = CompactSpy()
     r, launches, per_kernel = headline(dev, model, h, kernels, "pair",
-                                       clean_check=False)
+                                       clean_check=False, spies=(spy,))
     fetches = r["engine-stats"]["fetches"]
     if launches != PAIR_LAUNCHES or fetches != PAIR_FETCHES:
         raise AssertionError(f"pair headline: launches {launches} fetches "
                              f"{fetches}, expected {PAIR_LAUNCHES} and "
                              f"{PAIR_FETCHES}")
+    compact_paths = spy.paths()
+    log(f"[pair-headline] compact_keys2 calls of the timed run by path: "
+        f"{compact_paths}; {len(spy.spikes)} spike compactions recorded")
 
     # 13. a wide pair history (window > 32, two-word bitsets): a
     # counterexample against the CPU oracle
@@ -1432,7 +1694,9 @@ def pair_phases(dev) -> list:
             "fixpoint_pair": fix_err}
     extra = {"dedup_keys2": {"sizes": list(DEDUP_SIZES),
                              **dedup_extra["dedup_keys2"]},
-             "compact_keys2": {"sizes": list(COMPACT_SIZES)},
+             "compact_keys2": {"sizes": list(COMPACT_SIZES),
+                               "headline_paths": compact_paths,
+                               **compact_times(dev, spy.spikes)},
              "fixpoint_pair": {"tiers": fix_tiers, "paths": fix_paths,
                                **dedup_extra["fixpoint_pair"]}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
@@ -1562,9 +1826,9 @@ def dom_predecessor_tests(run) -> tuple:
 
 
 def dom_path() -> str:
-    """The path of the latest ``dedup_keys2_dom`` on the card: "multi"
-    (the multi-launch chain), or the one launch's "shared" or "device"
-    from its path word."""
+    """The path of the latest dominance dedup (either band) on the card:
+    "multi" (the multi-launch chain), or the one launch's "shared" or
+    "device" from its path word."""
     from jepsen_tpu_torch.lin import psort_cuda
 
     if psort_cuda.last_dom_route != "one":
@@ -1575,26 +1839,28 @@ def dom_path() -> str:
 
 @contextlib.contextmanager
 def dom_route(route: str):
-    """``dedup_keys2_dom``'s route while inside: "gate" (by
-    ``psort.DOM_ONE_MAX_N``), "one" (one launch at every size) or
-    "multi" (the multi-launch chain at every size)."""
+    """Both dominance dedups' route while inside: "gate" (by
+    ``psort.DOM_ONE_MAX_N`` and ``psort.DOM1_ONE_MAX_N``), "one" (one
+    launch at every size) or "multi" (the multi-launch chain at every
+    size)."""
     from jepsen_tpu_torch.lin import psort
 
-    saved = psort.DOM_ONE_MAX_N
-    psort.DOM_ONE_MAX_N = {"gate": saved, "one": psort.DOM_MAX_N,
-                           "multi": 0}[route]
+    saved = psort.DOM_ONE_MAX_N, psort.DOM1_ONE_MAX_N
+    if route != "gate":
+        psort.DOM_ONE_MAX_N = psort.DOM1_ONE_MAX_N = \
+            {"one": psort.DOM_MAX_N, "multi": 0}[route]
     try:
         yield
     finally:
-        psort.DOM_ONE_MAX_N = saved
+        psort.DOM_ONE_MAX_N, psort.DOM1_ONE_MAX_N = saved
 
 
 def dom_check(tag: str, pair: bool, words, masks, cap: int,
               routes=("gate",)) -> tuple:
     """Kernel vs plain in every mode on one input, through each of
     ``routes`` (:func:`dom_route`); raises on a difference. Returns (the
-    max word error, the counts of each route's runs, the paths
-    ``dedup_keys2_dom`` took)."""
+    max word error, the counts of each route's runs, the paths the
+    kernel took)."""
     import torch
 
     err = 0
@@ -1604,8 +1870,7 @@ def dom_check(tag: str, pair: bool, words, masks, cap: int,
         with dom_route(route):
             for force, rounds in DOM_MODES:
                 kern = dom_run(pair, words, masks, cap, force, rounds)
-                if pair:
-                    paths.append(dom_path())
+                paths.append(dom_path())
                 plain = dom_run(pair, words, masks, cap, force, rounds,
                                 plain=True)
                 torch.cuda.synchronize()
@@ -1627,22 +1892,23 @@ def dom_check(tag: str, pair: bool, words, masks, cap: int,
     return err, counts, set(paths)
 
 
-# The pair dedup's own inputs: the padded size of the capacity cases, the
-# entries of the one group whose dominators sit at distance 128, and the
-# size of the every-entry-equal case.
-DOM_CAP_N = 8192
+# Each dedup's own inputs: the padded size of the capacity cases (pairs,
+# single keys: past each one-launch path's shared capacity, 6,144 and
+# 12,288 entries), the entries of the one group whose dominators sit at
+# distance 128, and the size of the every-entry-equal case.
+DOM_CAP_N = {True: 8192, False: 16384}
 DOM_CHAIN_GROUP = 256
 DOM_EQUAL_N = 4096
 
 
-def dom_chain_group(cmask: int, rmask: int):
-    """Pair keys of one group of 2 x 128 entries whose dominance words
-    are, sorted, A_0 < ... < A_127 (distinct 5-of-10 bit patterns of the
-    low crashed bits, so no one is a subset of another) and then each
-    A_i with the top crashed bit added: entry 128 + i is dominated by
-    entry i alone, at distance 128, and entry 128 also by the group's
-    first entry. Forced (chain 128) 128 survive; unforced (chain 2)
-    255."""
+def dom_chain_group(cmask: int, rmask: int, pair: bool):
+    """Keys (pairs, or single keys) of one group of 2 x 128 entries whose
+    dominance words are, sorted, A_0 < ... < A_127 (distinct 5-of-10 bit
+    patterns of the low crashed bits, so no one is a subset of another)
+    and then each A_i with the top crashed bit added: entry 128 + i is
+    dominated by entry i alone, at distance 128, and entry 128 also by
+    the group's first entry. Forced (chain 128) 128 survive; unforced
+    (chain 2) 255."""
     import itertools
 
     import numpy as np
@@ -1651,33 +1917,35 @@ def dom_chain_group(cmask: int, rmask: int):
     pats = [sum(1 << low[b] for b in c)
             for c in itertools.combinations(range(10), 5)][:128]
     top = 1 << max(low)
-    grp = 5 | (3 << 48)
+    grp = 5 | (3 << 48) if pair else 5 | (3 << 25)
     keys = [grp | rmask | a for a in pats] + \
         [grp | rmask | a | top for a in pats]
     return np.array(keys, np.uint64)
 
 
-def dom_pair_cases(rng, shared_n: int):
-    """Seeded (label, key u64, valid, cap, routes, want) cases of the pair
-    dedup: valid counts just below, at and just above its one-launch
-    shared capacity ``shared_n`` (want: that path), the distance-128
-    group and every entry equal (want: the counts in forced-2,
-    forced-6 and unforced mode)."""
+def dom_cases(rng, shared_n: int, pair: bool):
+    """Seeded (label, key u64, valid, cap, routes, want) cases of a
+    dominance dedup (``pair``: the pair band's): valid counts just below,
+    at and just above its one-launch shared capacity ``shared_n`` (want:
+    that path), the distance-128 group and every entry equal (want: the
+    counts in forced-2, forced-6 and unforced mode)."""
     import numpy as np
 
-    cmask, rmask = DOM_MASKS[True]
+    cmask, rmask = DOM_MASKS[pair]
+    top = 52 if pair else 28
+    n = DOM_CAP_N[pair]
     out = []
     for live, path in ((shared_n - 1, "shared"), (shared_n, "shared"),
                        (shared_n + 1, "device")):
-        key = rng.integers(0, 1 << 52, DOM_CAP_N, dtype=np.uint64)
-        valid = np.zeros(DOM_CAP_N, bool)
-        valid[rng.choice(DOM_CAP_N, live, replace=False)] = True
-        out.append((f"live={live}", key, valid, DOM_CAP_N // 4,
-                    ("gate", "multi"), path))
-    chain = dom_chain_group(cmask, rmask)
+        key = rng.integers(0, 1 << top, n, dtype=np.uint64)
+        valid = np.zeros(n, bool)
+        valid[rng.choice(n, live, replace=False)] = True
+        out.append((f"live={live}", key, valid, n // 4, ("gate", "multi"),
+                    path))
+    chain = dom_chain_group(cmask, rmask, pair)
     out.append(("chain-128", chain, np.ones(chain.size, bool),
                 chain.size, ("gate", "multi"), [128, 128, 255]))
-    key = np.full(DOM_EQUAL_N, rng.integers(0, 1 << 52), np.uint64)
+    key = np.full(DOM_EQUAL_N, rng.integers(0, 1 << top), np.uint64)
     out.append(("every-entry-equal", key, np.ones(DOM_EQUAL_N, bool),
                 DOM_EQUAL_N // 4, ("gate", "multi"), [1, 1, 1]))
     return out
@@ -1729,20 +1997,20 @@ def dom_candidates(eng, front, tier: int):
 def check_dom_kernels(dev, engines) -> dict:
     """Phase 15: both dominance dedups vs their plain versions in every
     mode, at every padded size 2^10 ... 2^22, 2^24 and 2^25, on random
-    inputs,
-    and on real candidates of each crash-dom headline (``engines``: pair
-    flag -> (engine, recorded frontiers)). Returns {name: max word
-    error}."""
+    inputs, on :func:`dom_cases` through both routes, and on real
+    candidates of each crash-dom headline (``engines``: pair flag ->
+    (engine, recorded frontiers)) through both routes; each must run its
+    shared, device and multi paths. Returns {name: max word error}."""
     import numpy as np
 
     from jepsen_tpu_torch.lin import bfs, psort_cuda
 
     errs = {}
-    seen = set()
     for pair in (False, True):
         name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
         rng = np.random.default_rng(91 if pair else 90)
         err = 0
+        seen = set()
         cmask, rmask = DOM_MASKS[pair]
         for n in DOM_SIZES + DOM_BIG:
             for label, key, valid, cap in dom_random_keys(rng, n, pair):
@@ -1752,24 +2020,23 @@ def check_dom_kernels(dev, engines) -> dict:
                     dom_mask_words(pair, cmask, rmask), cap)
                 err = max(err, e)
                 seen |= paths
-        if pair:
-            shared_n = psort_cuda.dom_one_shared_max_n(True)
-            for label, key, valid, cap, routes, want in \
-                    dom_pair_cases(rng, shared_n):
-                words = dom_words(dev, pair, key, valid, cmask, rmask)
-                e, counts, paths = dom_check(
-                    f"[{name}-vs-plain] n={key.size} {label}", pair, words,
-                    dom_mask_words(pair, cmask, rmask), cap, routes)
-                err = max(err, e)
-                seen |= paths
-                if isinstance(want, str) and paths != {want, "multi"}:
-                    raise AssertionError(f"{label}: paths {paths}, the one "
-                                         f"launch should sort in {want} "
-                                         "memory")
-                if isinstance(want, list) and any(c != want
-                                                  for c in counts.values()):
-                    raise AssertionError(f"{label}: counts {counts}, want "
-                                         f"{want}")
+        shared_n = psort_cuda.dom_one_shared_max_n(pair)
+        for label, key, valid, cap, routes, want in \
+                dom_cases(rng, shared_n, pair):
+            words = dom_words(dev, pair, key, valid, cmask, rmask)
+            e, counts, paths = dom_check(
+                f"[{name}-vs-plain] n={key.size} {label}", pair, words,
+                dom_mask_words(pair, cmask, rmask), cap, routes)
+            err = max(err, e)
+            seen |= paths
+            if isinstance(want, str) and paths != {want, "multi"}:
+                raise AssertionError(f"{label}: paths {paths}, the one "
+                                     f"launch should sort in {want} "
+                                     "memory")
+            if isinstance(want, list) and any(c != want
+                                              for c in counts.values()):
+                raise AssertionError(f"{label}: counts {counts}, want "
+                                     f"{want}")
         eng, fronts = engines[pair]
         for front in sorted(fronts, key=lambda f: -f[3])[:3]:
             count = front[3]
@@ -1780,15 +2047,14 @@ def check_dom_kernels(dev, engines) -> dict:
             e, _, paths = dom_check(
                 f"[{name}-vs-plain] headline row {front[0]} count {count} "
                 f"tier {tier} n={key.size}", pair, words,
-                dom_mask_words(pair, cmask, rmask), tier,
-                ("gate", "multi") if pair else ("gate",))
+                dom_mask_words(pair, cmask, rmask), tier, ("gate", "multi"))
             err = max(err, e)
             seen |= paths
         errs[name] = err
-    log(f"[dedup_keys2_dom-paths] runs took {sorted(seen)}")
-    if seen != {"shared", "device", "multi"}:
-        raise AssertionError(f"dedup_keys2_dom paths run: {sorted(seen)}, "
-                             "want shared, device and multi")
+        log(f"[{name}-paths] runs took {sorted(seen)}")
+        if seen != {"shared", "device", "multi"}:
+            raise AssertionError(f"{name} paths run: {sorted(seen)}, want "
+                                 "shared, device and multi")
     return errs
 
 
@@ -1813,13 +2079,14 @@ def dom_bound(n: int, out_n: int, words: int, rounds_work, survivors: int):
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
-def dom_headline(dev, model, h, pair: bool, gated: bool):
+def dom_headline(dev, model, h, pair: bool, rechecks: bool):
     """Phases 16 / 17: a crash-dom headline through
     ``checker.linearizable(algorithm="gpu")`` with the launch counts set to
-    0 just before and read just after; then a clean device check, and
-    (``gated``) one more with each dominance dedup call timed behind the
+    0 just before and read just after; then (``rechecks``) a clean device
+    check, and one more with each dominance dedup call timed behind the
     spin gate. Returns (result, launches, summed kernel ms of the gated
-    check or None, clean device check seconds)."""
+    check, clean device check seconds (None without ``rechecks``), end
+    to end seconds)."""
     import torch
 
     from jepsen_tpu_torch import checker
@@ -1850,6 +2117,8 @@ def dom_headline(dev, model, h, pair: bool, gated: bool):
         raise AssertionError(f"{tag} headline: {r}")
     if launches.get(name, 0) <= 0:
         raise AssertionError(f"the {tag} headline never launched {name}")
+    if not rechecks:
+        return r, launches, None, None, t_e2e
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rr = bfs.check_packed(p, device=dev)
@@ -1859,22 +2128,20 @@ def dom_headline(dev, model, h, pair: bool, gated: bool):
         raise AssertionError(f"{tag} re-check said {rr['valid?']!r}")
     log(f"[{tag}-headline] clean device check {t_dev:.3f}s "
         f"({n / t_dev:.1f} ops/s)")
-    per_call = None
-    if gated:
-        timer = CallTimer(psort, name)
-        with timer:
-            t0 = time.perf_counter()
-            rt = bfs.check_packed(p, device=dev)
-            torch.cuda.synchronize()
-            t_gated = time.perf_counter() - t0
-        if rt["valid?"] is not True:
-            raise AssertionError(f"{tag} timed check said {rt['valid?']!r}")
-        per_call = timer.total_ms()
-        log(f"[{tag}-headline] gated device check {t_gated:.3f}s: {name} "
-            f"{per_call:.1f} ms over {len(timer.calls)} calls "
-            f"({timer.unheld()} ungated) = {per_call / (t_gated * 1e3):.1%}"
-            " of the check (CUDA events after a spin gate)")
-    return r, launches, per_call, t_dev
+    timer = CallTimer(psort, name)
+    with timer:
+        t0 = time.perf_counter()
+        rt = bfs.check_packed(p, device=dev)
+        torch.cuda.synchronize()
+        t_gated = time.perf_counter() - t0
+    if rt["valid?"] is not True:
+        raise AssertionError(f"{tag} timed check said {rt['valid?']!r}")
+    per_call = timer.total_ms()
+    log(f"[{tag}-headline] gated device check {t_gated:.3f}s: {name} "
+        f"{per_call:.1f} ms over {len(timer.calls)} calls "
+        f"({timer.unheld()} ungated) = {per_call / (t_gated * 1e3):.1%}"
+        " of the check (CUDA events after a spin gate)")
+    return r, launches, per_call, t_dev, t_e2e
 
 
 def hostrow_phase(dev, model):
@@ -1918,52 +2185,22 @@ def hostrow_phase(dev, model):
                              "final paths")
 
 
-def dom_times(eng, fronts, stats, pair: bool):
-    """Phase 19: a dominance dedup's time per call at its headline's most
-    frequent in-chunk shape (the most frequent unfused tier, real
-    candidates, 2 rounds), its plain version's, and its bound."""
-    from jepsen_tpu_torch.lin import bfs, psort
-
-    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
-    unfused = dict(stats.get("unfused_tiers", {}))
-    tier = max(unfused, key=unfused.get)
-    front = max((f for f in fronts if f[3] * bfs.TIER_MARGIN <= tier),
-                key=lambda f: (f[3], f[0]))
-    key, valid, cmask, rmask = dom_candidates(eng, front, tier)
-    words = dom_words(eng.dev, pair, key, valid, cmask, rmask)
-    masks = dom_mask_words(pair, cmask, rmask)
-    rounds = bfs.DOM_ITERS_CHUNK
-    out, work = dom_predecessor_tests(
-        lambda: dom_run(pair, words, masks, tier, True, rounds, plain=True))
-    ms = time_chunk(lambda: dom_run(pair, words, masks, tier, True, rounds),
-                    50)
-    plain = time_chunk(lambda: dom_run(pair, words, masks, tier, True,
-                                       rounds, plain=True), 5)
-    n = key.size
-    bound, by = dom_bound(n, tier, 4 if pair else 2, work, int(out[-2]))
-    shape = {"n": n, "n_pad": psort.pad_size(n), "cap": tier,
-             "rounds": rounds, "M": eng.M,
-             "predecessor_tests": work}
-    log(f"[dom-time] {name} tier={tier} ({unfused[tier]} passes at this "
-        f"tier) row={front[0]} count={front[3]} n={n} (pad "
-        f"{psort.pad_size(n)}) survivors={int(out[-2])} predecessor tests "
-        f"per round {work}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bound:.6f} ms ({by}); no PyTorch call computes it")
-    return ms, plain, bound, by, shape
-
-
 def dom_tier_times(eng, fronts, stats) -> list:
-    """Phase 19 for ``dedup_keys2_dom``: its time per call at every
-    in-chunk tier the pair crash-dom headline met (real candidates of the
-    fullest recorded row the tier holds, 2 rounds) through its route
-    (``psort.DOM_ONE_MAX_N``) and through each route forced, with its
-    kernel launches per call (the library's count), beside its plain
-    version's time and its bound; and both routes on the tier's worst
-    case, every candidate valid. Returns one dict a tier."""
+    """Phase 19: a dominance dedup's time per call at every in-chunk tier
+    its crash-dom headline met (real candidates of the fullest recorded
+    row the tier holds, 2 rounds) through its route (its band's gate,
+    ``psort.DOM_ONE_MAX_N`` or ``psort.DOM1_ONE_MAX_N``) and through each
+    route forced, with its kernel launches per call (the library's
+    count), beside its plain version's time and its bound; and both
+    routes on the tier's worst case, every candidate valid. Returns one
+    dict a tier."""
     import numpy as np
 
     from jepsen_tpu_torch.lin import bfs, psort, psort_cuda
 
+    pair = eng.pair
+    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+    gate = psort.DOM_ONE_MAX_N if pair else psort.DOM1_ONE_MAX_N
     unfused = dict(stats.get("unfused_tiers", {}))
     rows = []
     for tier in sorted(unfused):
@@ -1972,12 +2209,12 @@ def dom_tier_times(eng, fronts, stats) -> list:
             continue
         front = max(fit, key=lambda f: (f[3], f[0]))
         key, valid, cmask, rmask = dom_candidates(eng, front, tier)
-        words = dom_words(eng.dev, True, key, valid, cmask, rmask)
-        masks = dom_mask_words(True, cmask, rmask)
+        words = dom_words(eng.dev, pair, key, valid, cmask, rmask)
+        masks = dom_mask_words(pair, cmask, rmask)
         rounds = bfs.DOM_ITERS_CHUNK
 
         def run(plain=False):
-            return dom_run(True, words, masks, tier, True, rounds,
+            return dom_run(pair, words, masks, tier, True, rounds,
                            plain=plain)
 
         out, work = dom_predecessor_tests(lambda: run(plain=True))
@@ -1995,19 +2232,19 @@ def dom_tier_times(eng, fronts, stats) -> list:
         # The worst case of the tier, every candidate valid, up to four
         # times the one launch's gate (one block sorts all of them).
         worst = None
-        if psort.pad_size(n) <= 4 * psort.DOM_ONE_MAX_N:
-            full = dom_words(eng.dev, True, key, np.ones_like(valid), cmask,
+        if psort.pad_size(n) <= 4 * gate:
+            full = dom_words(eng.dev, pair, key, np.ones_like(valid), cmask,
                              rmask)
 
             def run_full():
-                return dom_run(True, full, masks, tier, True, rounds)
+                return dom_run(pair, full, masks, tier, True, rounds)
 
             with dom_route("one"):
                 run_full()
                 worst = {"path": dom_path(), "one_ms": time_chunk(run_full, 3)}
             with dom_route("multi"):
                 worst["multi_ms"] = time_chunk(run_full, 3)
-        bound, by = dom_bound(n, tier, 4, work, int(out[-2]))
+        bound, by = dom_bound(n, tier, 4 if pair else 2, work, int(out[-2]))
         row = {"tier": tier, "passes": unfused[tier], "row": front[0],
                "count": front[3], "n": n, "n_pad": psort.pad_size(n),
                "valid": int(valid.sum()), "survivors": int(out[-2]),
@@ -2015,7 +2252,7 @@ def dom_tier_times(eng, fronts, stats) -> list:
                "one_ms": one_ms, "multi_ms": multi_ms, "plain_ms": plain,
                "bound_ms": bound, "bound_by": by,
                "predecessor_tests": work, "all_valid": worst}
-        log(f"[dom-tier-time] dedup_keys2_dom tier={tier} "
+        log(f"[dom-tier-time] {name} tier={tier} "
             f"({unfused[tier]} passes) row={front[0]} count={front[3]} "
             f"n={n} (pad {row['n_pad']}) valid={row['valid']} survivors="
             f"{row['survivors']}: {path}, {per_call} launches a call, "
@@ -2029,24 +2266,26 @@ def dom_tier_times(eng, fronts, stats) -> list:
     return rows
 
 
-def dom_gate_worst(dev) -> dict:
-    """Phase 19: both routes of ``dedup_keys2_dom`` at the one launch's
-    gate, n = ``psort.DOM_ONE_MAX_N``, on phase 15's mixed random keys
-    (85% valid, so the one launch sorts in device memory): the worst case
-    the gate admits."""
+def dom_gate_worst(dev, pair: bool) -> dict:
+    """Phase 19: both routes of a dominance dedup at its one launch's
+    gate, n = ``psort.DOM_ONE_MAX_N`` (``pair``) or
+    ``psort.DOM1_ONE_MAX_N``, on phase 15's mixed random keys (85% valid,
+    so the one launch sorts in device memory): the worst case the gate
+    admits."""
     import numpy as np
 
     from jepsen_tpu_torch.lin import psort
 
-    n = psort.DOM_ONE_MAX_N
-    rng = np.random.default_rng(92)
-    _, key, valid, cap = dom_random_keys(rng, n, True)[0]
-    cmask, rmask = DOM_MASKS[True]
-    words = dom_words(dev, True, key, valid, cmask, rmask)
-    masks = dom_mask_words(True, cmask, rmask)
+    name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
+    n = psort.DOM_ONE_MAX_N if pair else psort.DOM1_ONE_MAX_N
+    rng = np.random.default_rng(92 if pair else 93)
+    _, key, valid, cap = dom_random_keys(rng, n, pair)[0]
+    cmask, rmask = DOM_MASKS[pair]
+    words = dom_words(dev, pair, key, valid, cmask, rmask)
+    masks = dom_mask_words(pair, cmask, rmask)
 
     def run():
-        return dom_run(True, words, masks, cap, True, 2)
+        return dom_run(pair, words, masks, cap, True, 2)
 
     out = {"n": n, "valid": int(valid.sum())}
     with dom_route("one"):
@@ -2055,7 +2294,7 @@ def dom_gate_worst(dev) -> dict:
         out["one_ms"] = time_chunk(run, 3)
     with dom_route("multi"):
         out["multi_ms"] = time_chunk(run, 3)
-    log(f"[dom-gate-worst] dedup_keys2_dom n={n} mixed random keys, "
+    log(f"[dom-gate-worst] {name} n={n} mixed random keys, "
         f"{out['valid']} valid, 2 rounds: one launch ({out['path']}) "
         f"{out['one_ms']:.4f} ms, multi-launch {out['multi_ms']:.4f} ms")
     return out
@@ -2091,41 +2330,36 @@ def crashdom_phases(dev) -> list:
     results = {}
     # 16, 17. the headlines through the user's entry point; the pair
     # headline's per-call timing is left to phase 19 (a gated check would
-    # add a minute).
+    # add two minutes).
     for pair in (False, True):
         results[pair] = dom_headline(dev, model, hists[pair], pair,
-                                     gated=not pair)
+                                     rechecks=not pair)
     # 18. the host-row executor
     hostrow_phase(dev, model)
-    # 19. per-call times
+    # 19. per-call times at every in-chunk tier
     for pair in (False, True):
         name = "dedup_keys2_dom" if pair else "dedup_keys_dom"
-        r, launches, per_call, t_dev = results[pair]
+        r, launches, per_call, t_dev, t_e2e = results[pair]
         eng, fronts = engines[pair]
-        extra = {}
-        if pair:
-            tiers = dom_tier_times(eng, fronts, r["engine-stats"])
-            unfused = r["engine-stats"]["unfused_tiers"]
-            top = max(unfused, key=unfused.get)
-            t = next(x for x in tiers if x["tier"] == top)
-            ms, plain, bound, by = (t["ms"], t["plain_ms"], t["bound_ms"],
-                                    t["bound_by"])
-            shape = {"n": t["n"], "n_pad": t["n_pad"], "cap": top,
-                     "rounds": 2, "M": eng.M,
-                     "predecessor_tests": t["predecessor_tests"]}
-            extra = {"path": t["path"],
-                     "launches_per_call": t["launches_per_call"],
-                     "tiers": tiers, "gate_worst": dom_gate_worst(dev)}
-        else:
-            ms, plain, bound, by, shape = dom_times(eng, fronts,
-                                                    r["engine-stats"], pair)
+        tiers = dom_tier_times(eng, fronts, r["engine-stats"])
+        unfused = r["engine-stats"]["unfused_tiers"]
+        top = max(unfused, key=unfused.get)
+        t = next(x for x in tiers if x["tier"] == top)
+        ms, plain, bound, by = (t["ms"], t["plain_ms"], t["bound_ms"],
+                                t["bound_by"])
+        shape = {"n": t["n"], "n_pad": t["n_pad"], "cap": top,
+                 "rounds": 2, "M": eng.M,
+                 "predecessor_tests": t["predecessor_tests"]}
+        extra = {"path": t["path"],
+                 "launches_per_call": t["launches_per_call"],
+                 "tiers": tiers, "gate_worst": dom_gate_worst(dev, pair)}
         entries.append({
             "name": name, "route": "cuda", "source": SRC + "psort.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bit_exact": True, "shape": shape, "headline_ms": per_call,
-            "headline_check_s": t_dev,
+            "headline_check_s": t_dev, "headline_e2e_s": t_e2e,
             "sizes": list(DOM_SIZES + DOM_BIG), **extra})
     return entries
 

@@ -64,16 +64,40 @@
 // engine's sizes (the bytes, the live keys read and written once per
 // digit pass, take microseconds at 3.35 TB/s at n = 2^21 pairs).
 //
-// compact_keys and compact_keys2 sort by a bitonic network over n_pad
-// keys. Strides below a tile of 32 KiB (8192 single keys, 4096 pairs) run
-// inside one block in shared memory, many stages per launch; larger
-// strides are one launch each of global-memory compare-exchanges, one pair
-// per thread across the whole card (n_pad up to 2^19 keys, resident in the
-// 50 MB L2). The network's output is the sorted array whatever its stage
-// order, so the result equals the TPU kernel's bit for bit. count stays on
-// the device. At n_pad = 2^19 the single-key sort is 1 tile launch + 21
-// global stages + 6 tile merges (pairs: 1 + 28 + 7), each moving the array
-// through L2: launches and L2 traffic bound it.
+// compact_keys sorts by a bitonic network over n_pad keys, and so does
+// compact_keys2 past its one-launch gate (psort.COMPACT2_ONE_MAX_N, set
+// on the card). Strides below a tile of 32 KiB (8192 single keys, 4096
+// pairs) run inside one block in shared memory, many stages per launch;
+// larger strides are one launch each of global-memory compare-exchanges,
+// one pair per thread across the whole card (n_pad up to 2^19 keys,
+// resident in the 50 MB L2). The network's output is the sorted array
+// whatever its stage order, so the result equals the TPU kernel's bit for
+// bit. count stays on the device. At n_pad = 2^19 the single-key sort is 1
+// tile launch + 21 global stages + 6 tile merges (pairs: 1 + 28 + 7), each
+// moving the array through L2: launches and L2 traffic bound it.
+//
+// compact_keys2 in one launch (a template on the key type, instantiated
+// for pairs). The engine's return filter clears one bit that every
+// survivor holds, from a frontier that is ascending, so its live keys
+// (those other than the fill key) arrive ascending with fill holes, and
+// an order-keeping compaction is the sorted result. One block of 1024
+// threads sweeps the keys once, each warp over a contiguous range, eight
+// keys a lane in flight: it counts the live keys per warp by ballots,
+// takes their OR and AND, and notes whether any live key is smaller than
+// the live key before it (within a warp by a shuffle from the previous
+// live lane, across warps by a scan of the warps' first and last keys).
+// A scan of the warps' counts gives each warp its offset. With no descent
+// a second sweep writes the first cap live keys to out in order (a warp
+// whose offset is past cap skips it) and the fill key after them. With a
+// descent it places the live keys in order into a buffer and sorts them
+// with the dominance dedup's block-local LSD radix sort over their
+// varying bits (below): in shared memory up to 12,288 pairs, else in a
+// device-memory scratch of 2 n keys that the wrapper sizes from n. The
+// path (ordered, sorted in shared memory, sorted in device memory) is
+// chosen inside the launch and written beside the count. Bound on the
+// ordered path by one SM's share of the memory traffic (two reads of the
+// keys, one write of the output) and the launch; arbitrary input adds a
+// pass per varying 8-bit window, on one SM.
 //
 // Dominance. The TPU kernels, and the engine's forced lax path that the
 // crash-dom bands really run (jepsen_tpu/lin/bfs.py _dedup_keys_dom and
@@ -83,10 +107,14 @@
 // distance 1..chain in its group, has a word that is a strict subset of
 // its own), and compact the survivors in order between rounds; last they
 // sort the survivors' recombined full keys. Two paths, chosen on the host
-// from n_pad (psort.DOM_ONE_MAX_N, set on the card).
+// from n_pad (psort.DOM_ONE_MAX_N for pairs, psort.DOM1_ONE_MAX_N for
+// single keys, both set on the card).
 //
-// One launch (pair keys, n_pad up to the gate: the in-chunk tiers 256 ..
-// 4,096 at M 32). One block of 1024 threads does the whole call. It loads
+// One launch (n_pad up to the gate: the in-chunk tiers 256 .. 4,096, at
+// M 32 for pairs and M 16 for single keys; one template on the entry
+// type, 8-byte entries and 32-bit full keys for single keys, 16-byte
+// entries and 64-bit full keys for pairs). One block of 1024 threads does
+// the whole call. It loads
 // only the valid entries (an invalid one, or the padding, never
 // survives), placed in any order by a warp ballot and one shared atomic
 // per warp, taking the OR and AND of their bits; sorts them by the
@@ -100,7 +128,8 @@
 // counts; writes the survivors' full keys, sorts them the same way, and
 // writes out[cap], the count and the overflow flag. Entries live in two
 // 96 KiB buffers of dynamic shared memory while the valid ones fit
-// (6,144 pairs; the keep bits in the histogram space), else in two
+// (6,144 pairs or 12,288 single-key entries; the keep bits, at most 384
+// words, in the histogram space), else in two
 // device-memory buffers of n entries plus n / 32 + 1 keep words that the
 // wrapper sizes from n: the path is chosen inside the launch, with no
 // host sync, and written in a third word beside the flags. The pair
@@ -111,8 +140,8 @@
 // one SM. With many valid entries (dense random keys) the one block
 // loses to the multi-launch chain's 132 SMs, which sets the gate.
 //
-// Multi-launch (every n_pad, the single-key band, and the pair calls
-// past the gate: the host-row executor's caps up to 2^25). One sort of
+// Multi-launch (the calls past the gates: the upper in-chunk tiers of
+// the pair band and the host-row executor's caps up to 2^25). One sort of
 // the entries (the tile and global-stage kernels above on the wider
 // key), then per round one thread per entry finds its group's first
 // entry by a binary search and walks back over its predecessors while
@@ -1439,6 +1468,220 @@ int dom_one_launch(const uint32_t* a_hi, const uint32_t* a_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the one-launch order-keeping compaction -----------------------------
+
+// Keys a lane loads at once in the compaction's sweeps.
+constexpr int kCompactPer = 8;
+// The largest n the one-launch compaction takes (psort.DEDUP_MAX_N, past
+// the engine's spike compactions of 2^20 pairs).
+constexpr int kCompactOneMaxN = 1 << 21;
+// The path word's value on the order-keeping path (beside
+// kOnePathShared and kOnePathDevice for a sort).
+constexpr int kOnePathOrdered = 4;
+
+// A key of lane `src` (of the lane d below, for shfl_up_key), through
+// the 64-bit shuffle.
+template <typename K>
+__device__ __forceinline__ K shfl_key(K v, int src) {
+  return static_cast<K>(
+      __shfl_sync(kFullMask, static_cast<unsigned long long>(v), src));
+}
+template <typename K>
+__device__ __forceinline__ K shfl_up_key(K v, int d) {
+  return static_cast<K>(
+      __shfl_up_sync(kFullMask, static_cast<unsigned long long>(v), d));
+}
+
+// The largest of the keys of lanes at or below this one.
+template <typename K>
+__device__ __forceinline__ K warp_inclusive_max(K v) {
+  const int lane = threadIdx.x & 31;
+  for (int d = 1; d < 32; d <<= 1) {
+    const K u = shfl_up_key(v, d);
+    if (lane >= d && v < u) v = u;
+  }
+  return v;
+}
+
+// A warp's step of the compaction's sweeps: lane l's key u is key g + 32 u
+// + l, the fill key at or past `end`.
+template <typename K>
+__device__ __forceinline__ void compact_step(const uint32_t* key_hi,
+                                             const uint32_t* key_lo, int g,
+                                             int end, K (&v)[kCompactPer]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kCompactPer; ++u) {
+    const int i = g + u * 32 + lane;
+    v[u] = i < end ? load_key<K>(key_hi, key_lo, i) : KeyOf<K>::kFill;
+  }
+}
+
+// out[0 .. cap) = the keys sorted (the fill key last), words = {min(live,
+// cap), path}, where live counts the keys other than the fill key. One
+// block; scratch: 2 n keys when n exceeds OneOf<K>::kSharedN, else unused.
+template <typename K>
+__global__ void __launch_bounds__(kThreads, 1)
+    compact_one_kernel(const uint32_t* key_hi, const uint32_t* key_lo, int n,
+                       int cap, uint32_t* out_hi, uint32_t* out_lo,
+                       int32_t* words, K* scratch) {
+  constexpr int S = OneOf<K>::kSharedN;
+  constexpr int kStep = 32 * kCompactPer;
+  constexpr K kFill = KeyOf<K>::kFill;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  __shared__ int hist[kOneWarps][kDigits + 1];
+  __shared__ int warp_sums[32];
+  __shared__ K s_first[kOneWarps], s_last[kOneWarps];
+  __shared__ int s_total, s_down;
+  __shared__ unsigned long long s_or[2], s_and[2];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  if (tid == 0) {
+    s_down = 0;
+    s_or[0] = s_or[1] = 0ull;
+    s_and[0] = s_and[1] = ~0ull;
+  }
+  // Warp w sweeps [lo, hi) in steps of kStep keys, kCompactPer a lane.
+  const int span = (n + kOneWarps * kStep - 1) / (kOneWarps * kStep) * kStep;
+  const int lo = min(n, warp * span);
+  const int hi = min(n, lo + span);
+  __syncthreads();
+
+  // 1. live counts, first and last live keys, descents, OR and AND.
+  int cnt = 0;
+  K first = K(0), last = K(0);
+  bool down = false;
+  Bits o{0, 0}, a{~0ull, ~0ull};
+  for (int g = lo; g < hi; g += kStep) {
+    K v[kCompactPer];
+    compact_step(key_hi, key_lo, g, hi, v);
+#pragma unroll
+    for (int u = 0; u < kCompactPer; ++u) {
+      const bool live = v[u] != kFill;
+      const unsigned m = __ballot_sync(kFullMask, live);
+      if (m == 0u) continue;
+      // The live key before this lane's: the nearest live lower lane's,
+      // else the warp's last live key so far.
+      const unsigned lower = m & below;
+      const K prev = shfl_key(v[u], lower ? 31 - __clz(lower) : lane);
+      if (live) {
+        if (lower) {
+          down |= v[u] < prev;
+        } else if (cnt > 0) {
+          down |= v[u] < last;
+        }
+        const Bits b = bits_of(v[u]);
+        o.hi |= b.hi;
+        o.lo |= b.lo;
+        a.hi &= b.hi;
+        a.lo &= b.lo;
+      }
+      if (cnt == 0) first = shfl_key(v[u], __ffs(m) - 1);
+      last = shfl_key(v[u], 31 - __clz(m));
+      cnt += __popc(m);
+    }
+  }
+  if (__any_sync(kFullMask, down) && lane == 0) s_down = 1;
+  if (lane == 0) {
+    warp_sums[warp] = cnt;
+    s_first[warp] = first;
+    s_last[warp] = last;
+  }
+  block_or_and(o, a, s_or, s_and);
+  // The warps' offsets, the total, and the descents between warps: a
+  // warp's first live key below the largest last live key of the warps
+  // before it.
+  if (warp == 0) {
+    const int c = warp_sums[lane];
+    int inc = c;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(kFullMask, inc, d);
+      if (lane >= d) inc += u;
+    }
+    const K upto = warp_inclusive_max(c > 0 ? s_last[lane] : K(0));
+    const K before = shfl_up_key(upto, 1);
+    const bool cross = lane > 0 && c > 0 && s_first[lane] < before;
+    warp_sums[lane] = inc - c;
+    if (lane == 31) s_total = inc;
+    if (__any_sync(kFullMask, cross) && lane == 0) s_down = 1;
+  }
+  __syncthreads();
+  const int total = s_total;
+  const int count = total < cap ? total : cap;
+
+  // 2. the live keys in order: with no descent the first cap of them to
+  // out, the fill key after them; else every one into a buffer to sort.
+  const bool ordered = s_down == 0;
+  const bool fits = total <= S;
+  K* src = fits ? reinterpret_cast<K*>(dyn_raw) : scratch;
+  K* dst = fits ? src + S : scratch + n;
+  const int limit = ordered ? cap : total;
+  int at = warp_sums[warp];
+  for (int g = lo; g < hi && at < limit; g += kStep) {
+    K v[kCompactPer];
+    compact_step(key_hi, key_lo, g, hi, v);
+#pragma unroll
+    for (int u = 0; u < kCompactPer; ++u) {
+      const bool live = v[u] != kFill;
+      const unsigned m = __ballot_sync(kFullMask, live);
+      const int k = at + __popc(m & below);
+      if (live && k < limit) {
+        if (ordered) {
+          store_key(out_hi, out_lo, k, v[u]);
+        } else {
+          src[k] = v[u];
+        }
+      }
+      at += __popc(m);
+    }
+  }
+  if (ordered) {
+    for (int i = total + tid; i < cap; i += kThreads) {
+      store_key(out_hi, out_lo, i, kFill);
+    }
+    if (tid == 0) {
+      words[0] = count;
+      words[1] = kOnePathOrdered;
+    }
+    return;
+  }
+
+  // 3. a descent: the buffer's sort.
+  __syncthreads();
+  const Bits vary{s_or[0] ^ s_and[0], s_or[1] ^ s_and[1]};
+  const K* sorted = one_sort(src, dst, total, vary, hist, warp_sums);
+  for (int i = tid; i < cap; i += kThreads) {
+    store_key(out_hi, out_lo, i, i < total ? sorted[i] : kFill);
+  }
+  if (tid == 0) {
+    words[0] = count;
+    words[1] = fits ? kOnePathShared : kOnePathDevice;
+  }
+}
+
+template <typename K>
+int compact_one_launch(const void* hi, const void* lo, int n, int cap,
+                       void* scratch, void* out_hi, void* out_lo, void* words,
+                       void* stream) {
+  if (n < 1 || n > kCompactOneMaxN || cap < 1 ||
+      (n > OneOf<K>::kSharedN && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      compact_one_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kOneSharedBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  compact_one_kernel<K><<<1, kThreads, kOneSharedBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo), n,
+      cap, static_cast<uint32_t*>(out_hi), static_cast<uint32_t*>(out_lo),
+      static_cast<int32_t*>(words), static_cast<K*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_sizes(int n, int n_pad, int cap) {
   return n < 1 || n_pad < kMinN || n_pad > kMaxN || (n_pad & (n_pad - 1)) ||
          n > n_pad || cap < 1 || cap > n_pad;
@@ -1486,6 +1729,25 @@ int psort_dedup_dom_launch(const void* a, const void* w, uint32_t cmask,
       static_cast<uint8_t*>(keep), static_cast<int32_t*>(blocks),
       static_cast<uint32_t*>(full), nullptr, static_cast<uint32_t*>(out),
       static_cast<int32_t*>(flags), st);
+}
+
+// Single keys in one launch (n up to kDomMaxN, any n_pad). Device
+// pointers: a, w u32[n], scratch of 2 n 8-byte entries and n / 32 + 1
+// keep words when n exceeds psort_dom_one_shared_max_n(0), else unused
+// and may be null, out u32[cap], flags i32[3] = {min(total, cap), total >
+// cap, path} (as psort_dedup2_dom_one_launch's).
+int psort_dedup_dom_one_launch(const void* a, const void* w, uint32_t cmask,
+                               uint32_t rmask, int n, int cap, int chain,
+                               int rounds, void* scratch, void* out,
+                               void* flags, void* stream) {
+  if (n < 1 || n > kDomMaxN || cap < 1 || chain < 0 || rounds < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dom_one_launch<uint64_t>(
+      nullptr, static_cast<const uint32_t*>(a), nullptr,
+      static_cast<const uint32_t*>(w), n, cap, chain, rounds, cmask, rmask,
+      nullptr, static_cast<uint32_t*>(out), static_cast<int32_t*>(flags),
+      scratch, static_cast<cudaStream_t>(stream));
 }
 
 // Pair keys. Device pointers: a_hi, a_lo, w_hi, w_lo u32[n], e0, e1
@@ -1601,5 +1863,20 @@ int psort_compact2_launch(const void* hi, const void* lo, int n, int n_pad,
   return compact_launch<uint64_t>(hi, lo, n, n_pad, cap, work, out_hi, out_lo,
                                   count, stream);
 }
+
+// Pairs in one launch (n up to 2^21, cap any). Device pointers: hi, lo
+// u32[n], scratch u64[2 n] when n exceeds psort_compact2_one_shared_max_n(),
+// else unused and may be null, out_hi, out_lo u32[cap], words i32[2] =
+// {min(live, cap), path} (path 4: in order, no sort; 1: sorted in shared
+// memory; 2: sorted in the device-memory scratch).
+int psort_compact2_one_launch(const void* hi, const void* lo, int n, int cap,
+                              void* scratch, void* out_hi, void* out_lo,
+                              void* words, void* stream) {
+  return compact_one_launch<uint64_t>(hi, lo, n, cap, scratch, out_hi, out_lo,
+                                      words, stream);
+}
+
+// Live pairs the one-launch compaction sorts in shared memory.
+int psort_compact2_one_shared_max_n() { return OneOf<uint64_t>::kSharedN; }
 
 }  // extern "C"

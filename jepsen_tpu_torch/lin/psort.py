@@ -73,6 +73,27 @@ DOM_MAX_N = 1 << 26
 # on dense random keys; larger calls, the upper tiers and the host-row
 # executor's caps, keep the multi-launch chain.
 DOM_ONE_MAX_N = 1 << 18
+# The single-key dominance dedup's twin gate, set on the H100 the same
+# way (chip_smoke.py phase 19 on the single-key crash-dom headline's
+# candidates at each tier, every candidate valid, and random keys at the
+# gate): one launch beats the chain at the in-chunk tiers 256 .. 4,096
+# (n_pad 8,192 .. 131,072 at M 16), even with every candidate valid, and
+# loses to its 132 SMs on dense random keys at the gate; larger calls,
+# the upper tiers and the host-row executor's caps, keep the chain.
+DOM1_ONE_MAX_N = 1 << 18
+# The pair compaction runs in one launch up to this padded size, and on
+# the bitonic network above (up to PSORT_MAX_N), set on the H100
+# (chip_smoke.py phase 14: both routes at every size of its
+# COMPACT_SIZES on ascending-with-holes and arbitrary input, and the one
+# launch against the engine's torch.sort on the pair headline's spike
+# compactions). On the engine's input, which its return filter keeps
+# ascending, one block wins up to 2^17 and loses from 2^18 to the
+# network's 132 SMs (one SM's share of the traffic); on arbitrary input,
+# which the engine does not send, it loses at every size; past
+# PSORT_MAX_N the engine's torch.sort beats it too.
+COMPACT2_ONE_MAX_N = 1 << 17
+# The one-launch compaction's limit (kCompactOneMaxN in psort.cu).
+COMPACT2_ONE_LIMIT = 1 << 21
 
 # Kernel launches since import (or since a caller reset them): one per
 # launch of each CUDA kernel, none for the plain versions.
@@ -272,17 +293,32 @@ def compact_keys2(hi: torch.Tensor, lo: torch.Tensor, cap: int):
     """Pair twin of :func:`compact_keys`: the dropped entries are KEY_FILL
     in both words. Returns (hi int32[cap], lo int32[cap], count int32 =
     min(number of pairs other than (KEY_FILL, KEY_FILL), cap)) on the
-    keys' device."""
+    keys' device. On the card it runs in one launch up to
+    :data:`COMPACT2_ONE_MAX_N` (which keeps the input's order when its
+    live pairs arrive ascending, and sorts them otherwise), and on the
+    bitonic network above."""
     _check2(hi, lo, cap, "compact_keys2")
     if lo.device.type == "cpu":
         return compact_keys2_plain(hi, lo, cap)
-    _pair_kernel_args(hi, lo, "compact_keys2", PSORT_MAX_N)
+    one = compact2_one_launch(lo.numel())
+    _pair_kernel_args(hi, lo, "compact_keys2",
+                      COMPACT2_ONE_LIMIT if one else PSORT_MAX_N)
     from jepsen_tpu_torch.lin import psort_cuda
 
-    out_hi, out_lo, count = psort_cuda.compact2(hi, lo, cap,
-                                                pad_size(lo.numel()))
+    if one:
+        out_hi, out_lo, count = psort_cuda.compact2_one(hi, lo, cap)
+    else:
+        out_hi, out_lo, count = psort_cuda.compact2(hi, lo, cap,
+                                                    pad_size(lo.numel()))
     LAUNCHES["compact_keys2"] += 1
     return out_hi, out_lo, count[0]
+
+
+def compact2_one_launch(n: int) -> bool:
+    """Route of an n-pair compaction on the card: one launch while its
+    padded size is at most :data:`COMPACT2_ONE_MAX_N`, else the bitonic
+    network."""
+    return pad_size(n) <= COMPACT2_ONE_MAX_N
 
 
 def compact_keys2_plain(hi: torch.Tensor, lo: torch.Tensor, cap: int):
@@ -313,11 +349,12 @@ def _dom_rounds(n: int, force: bool, iters: int) -> tuple[int, int]:
     return 1, len(window)
 
 
-def dom_one_launch(n: int) -> bool:
-    """Route of an n-entry pair dominance dedup on the card: one launch
-    while its padded size is at most :data:`DOM_ONE_MAX_N`, else the
-    multi-launch chain."""
-    return pad_size(n) <= DOM_ONE_MAX_N
+def dom_one_launch(n: int, pair: bool = True) -> bool:
+    """Route of an n-entry dominance dedup of the pair band (``pair``) or
+    the single-key band on the card: one launch while its padded size is
+    at most the band's gate (:data:`DOM_ONE_MAX_N`,
+    :data:`DOM1_ONE_MAX_N`), else the multi-launch chain."""
+    return pad_size(n) <= (DOM_ONE_MAX_N if pair else DOM1_ONE_MAX_N)
 
 
 def _check_dom(words, cap: int, what: str) -> None:
@@ -363,9 +400,14 @@ def dedup_keys_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
     _dom_kernel_args((a, w), "dedup_keys_dom")
     from jepsen_tpu_torch.lin import psort_cuda
 
-    rounds, chain = _dom_rounds(a.numel(), force, iters)
-    out, flags = psort_cuda.dedup_dom(a, w, cmask, rmask, cap,
-                                      pad_size(a.numel()), chain, rounds)
+    n = a.numel()
+    rounds, chain = _dom_rounds(n, force, iters)
+    if dom_one_launch(n, pair=False):
+        out, flags = psort_cuda.dedup_dom_one(a, w, cmask, rmask, cap, chain,
+                                              rounds)
+    else:
+        out, flags = psort_cuda.dedup_dom(a, w, cmask, rmask, cap,
+                                          pad_size(n), chain, rounds)
     LAUNCHES["dedup_keys_dom"] += 1
     return out, flags[0], flags[1] != 0
 
@@ -480,7 +522,7 @@ def dedup_keys2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor,
     n = a_lo.numel()
     rounds, chain = _dom_rounds(n, force, iters)
     masks = (cmask_hi, cmask_lo, rmask_hi, rmask_lo)
-    if dom_one_launch(n):
+    if dom_one_launch(n, pair=True):
         out_hi, out_lo, flags = psort_cuda.dedup2_dom_one(
             *words, *masks, cap, chain, rounds)
     else:

@@ -11,10 +11,11 @@ Keys are raw int32 tensors read as ``uint32_t``
 (:mod:`jepsen_tpu_torch._u32`); the pair kernels sort ``uint64_t`` keys
 ``hi << 32 | lo`` in an int64 scratch buffer. The dedups' int32 scratch
 (look-back status words, histograms, tickets and the pass plan) is sized
-by the library itself (``psort_dedup_scratch_words``). The pair
-dominance dedup has two routes, which its wrapper chooses from n_pad:
-one launch (:func:`dedup2_dom_one`) or the multi-launch chain
-(:func:`dedup2_dom`).
+by the library itself (``psort_dedup_scratch_words``). Each dominance
+dedup has two routes, which its wrapper chooses from n_pad: one launch
+(:func:`dedup_dom_one`, :func:`dedup2_dom_one`) or the multi-launch chain
+(:func:`dedup_dom`, :func:`dedup2_dom`); so has the pair compaction: one
+launch (:func:`compact2_one`) or the bitonic network (:func:`compact2`).
 """
 
 from __future__ import annotations
@@ -26,14 +27,18 @@ import torch
 from jepsen_tpu_torch import _build
 
 _lib = None
-# Bits of the one-launch dominance dedup's path word: its valid entries
-# were sorted in shared memory, or in the device-memory scratch.
-PATH_SHARED, PATH_DEVICE = 1, 2
-# The route of the latest pair dominance dedup ("one" or "multi") and,
-# for "one", its path word (int32[1] on the card), for checks that every
-# path ran.
+# Values of the one-launch kernels' path word: the keys were sorted in
+# shared memory, or in the device-memory scratch; or (the compaction)
+# they were in order and kept it, with no sort.
+PATH_SHARED, PATH_DEVICE, PATH_ORDERED = 1, 2, 4
+# The route of the latest dominance dedup of either band ("one" or
+# "multi") and, for "one", its path word (int32[1] on the card), for
+# checks that every path ran; the same for the latest pair compaction
+# ("one" or "bitonic").
 last_dom_route = None
 last_dom_path = None
+last_compact_route = None
+last_compact_path = None
 
 
 def _load():
@@ -54,10 +59,17 @@ def _load():
         lib.psort_dedup2_launch.restype = i
         lib.psort_compact2_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
         lib.psort_compact2_launch.restype = i
+        lib.psort_compact2_one_launch.argtypes = [p, p, i, i, p, p, p, p, p]
+        lib.psort_compact2_one_launch.restype = i
+        lib.psort_compact2_one_shared_max_n.argtypes = []
+        lib.psort_compact2_one_shared_max_n.restype = i
         u = ctypes.c_uint32
         lib.psort_dedup_dom_launch.argtypes = [p, p, u, u, i, i, i, i, i,
                                                p, p, p, p, p, p, p, p]
         lib.psort_dedup_dom_launch.restype = i
+        lib.psort_dedup_dom_one_launch.argtypes = [p, p, u, u, i, i, i, i, p,
+                                                   p, p, p]
+        lib.psort_dedup_dom_one_launch.restype = i
         lib.psort_dedup2_dom_launch.argtypes = [p, p, p, p, u, u, u, u, i,
                                                 i, i, i, i, p, p, p, p, p,
                                                 p, p, p, p]
@@ -157,8 +169,9 @@ def dedup2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
 
 
 def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
-    """Launch the pair compaction sort. Returns (hi int32[cap], lo
-    int32[cap], count int32[1]) on the keys' device."""
+    """Launch the pair compaction's bitonic sort. Returns (hi int32[cap],
+    lo int32[cap], count int32[1]) on the keys' device."""
+    global last_compact_route, last_compact_path
     lib = _load()
     n = lo.numel()
     dev = lo.device
@@ -172,7 +185,47 @@ def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
             out_hi.data_ptr(), out_lo.data_ptr(), count.data_ptr(),
             _stream(lo))
     _raise_on(rc, "psort compact_keys2", n=n, n_pad=n_pad, cap=cap)
+    last_compact_route, last_compact_path = "bitonic", None
     return out_hi, out_lo, count
+
+
+def compact2_shared_max_n() -> int:
+    """Live pairs the one-launch compaction sorts in shared memory when
+    they are out of order; a call with more sorts in its device-memory
+    scratch."""
+    return int(_load().psort_compact2_one_shared_max_n())
+
+
+def compact2_one_scratch_words(n: int, shared_n: int) -> int:
+    """int64 words of the one-launch compaction's device scratch for n
+    pairs: two buffers of n pairs where n exceeds ``shared_n``
+    (:func:`compact2_shared_max_n`: the live pairs may not fit in shared
+    memory), else one unused word."""
+    return 1 if n <= shared_n else 2 * n
+
+
+def compact2_one(hi: torch.Tensor, lo: torch.Tensor, cap: int):
+    """Launch the pair compaction in one launch: in order when the live
+    pairs arrive ascending, else sorted. Returns (hi int32[cap], lo
+    int32[cap], count int32[1]) on the keys' device and sets
+    :data:`last_compact_path`."""
+    global last_compact_route, last_compact_path
+    lib = _load()
+    n = lo.numel()
+    dev = lo.device
+    scratch = torch.empty(compact2_one_scratch_words(
+        n, compact2_shared_max_n()), dtype=torch.int64, device=dev)
+    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    words = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_compact2_one_launch(
+            hi.data_ptr(), lo.data_ptr(), n, cap, scratch.data_ptr(),
+            out_hi.data_ptr(), out_lo.data_ptr(), words.data_ptr(),
+            _stream(lo))
+    _raise_on(rc, "psort compact_keys2 (one launch)", n=n, cap=cap)
+    last_compact_route, last_compact_path = "one", words[1:]
+    return out_hi, out_lo, words[:1]
 
 
 def dom_kernel_launches() -> int:
@@ -212,8 +265,10 @@ def _dom_scratch(n_pad: int, entry_words: int, full_dtype, dev):
 
 def dedup_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
               cap: int, n_pad: int, chain: int, rounds: int):
-    """Launch the single-key dominance dedup. Returns (keys int32[cap],
-    flags int32[2] = (count, overflow)) on the keys' device."""
+    """Launch the single-key dominance dedup's multi-launch chain. Returns
+    (keys int32[cap], flags int32[2] = (count, overflow)) on the keys'
+    device."""
+    global last_dom_route, last_dom_path
     lib = _load()
     n = a.numel()
     dev = a.device
@@ -227,7 +282,32 @@ def dedup_dom(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
             e1.data_ptr(), keep.data_ptr(), blocks.data_ptr(),
             full.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream(a))
     _raise_on(rc, "psort dedup_keys_dom", n=n, n_pad=n_pad, cap=cap)
+    last_dom_route, last_dom_path = "multi", None
     return out, flags
+
+
+def dedup_dom_one(a: torch.Tensor, w: torch.Tensor, cmask: int, rmask: int,
+                  cap: int, chain: int, rounds: int):
+    """Launch the single-key dominance dedup in one launch. Returns (keys
+    int32[cap], flags int32[2] = (count, overflow)) on the keys' device
+    and sets :data:`last_dom_path`."""
+    global last_dom_route, last_dom_path
+    lib = _load()
+    n = a.numel()
+    dev = a.device
+    scratch = torch.empty(
+        dom_one_scratch_words(n, False, dom_one_shared_max_n(False)),
+        dtype=torch.int64, device=dev)
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    words = torch.empty(3, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.psort_dedup_dom_one_launch(
+            a.data_ptr(), w.data_ptr(), cmask & 0xFFFFFFFF,
+            rmask & 0xFFFFFFFF, n, cap, chain, rounds, scratch.data_ptr(),
+            out.data_ptr(), words.data_ptr(), _stream(a))
+    _raise_on(rc, "psort dedup_keys_dom (one launch)", n=n, cap=cap)
+    last_dom_route, last_dom_path = "one", words[2:]
+    return out, words[:2]
 
 
 def dedup2_dom(a_hi: torch.Tensor, a_lo: torch.Tensor, w_hi: torch.Tensor,

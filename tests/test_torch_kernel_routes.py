@@ -1,13 +1,18 @@
-"""The host side of the dense kernel's and the pair dominance dedup's
-routes, which the CPU can check without the card: which kernel a chunk
-width takes and what shared memory it asks for, the dominance dedup's
-choice between its one-launch and multi-launch paths by padded size, each
-path's scratch sizing, the launchers' limits, and that a tensor on a
-device without a kernel raises instead of falling back. The inputs
-``chip_smoke.py`` adds for the one-launch path (one group dominated only
-at distance 128, every entry equal) are held against the reference's lax
-dominance dedup here, bit for bit (tolerance 0: the keys are
-integers)."""
+"""The host side of the dense kernel's, the dominance dedups' and the
+pair compaction's routes, which the CPU can check without the card:
+which kernel a chunk width takes and what shared memory it asks for,
+each dominance dedup's choice between its one-launch and multi-launch
+paths by padded size, the pair compaction's between its one launch and
+the bitonic network, each path's scratch sizing, the launchers' limits,
+and that a tensor on a device without a kernel raises instead of falling
+back. The inputs ``chip_smoke.py`` adds for the one-launch paths (one
+group dominated only at distance 128, every entry equal, valid counts
+around the shared capacity; the compaction's ascending, descending and
+hi-KEY_FILL cases) are held against the reference's lax dominance dedup
+and its interpret-mode Pallas compaction here, bit for bit (tolerance 0:
+the keys are integers). Last, the property the one-launch compaction's
+speed rests on: the sparse engine hands it live pairs in ascending
+order."""
 
 import functools
 import sys
@@ -20,19 +25,27 @@ import pytest
 import torch
 
 from jepsen_tpu.lin import bfs as jbfs
+from jepsen_tpu.lin import psort as jpsort
 from jepsen_tpu_torch import _u32
+from jepsen_tpu_torch import models as tm
 from jepsen_tpu_torch.lin import bfs as tbfs
-from jepsen_tpu_torch.lin import dense_cuda, psort, psort_cuda
+from jepsen_tpu_torch.lin import dense_cuda, prepare, psort, psort_cuda
+from jepsen_tpu_torch.lin import synth as tsynth
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the card's inputs, built by numpy alone)
 
 FILL = 0xFFFFFFFF
 # Valid 16-byte entries the one-launch path sorts in shared memory
-# (psort_dom_one_shared_max_n(1) in csrc/psort.cu: 96 KiB a buffer).
+# (psort_dom_one_shared_max_n(1) in csrc/psort.cu: 96 KiB a buffer), and
+# 8-byte ones (psort_dom_one_shared_max_n(0); also the live pairs the
+# one-launch compaction sorts there, psort_compact2_one_shared_max_n()).
 SHARED_PAIRS = 6144
-# The in-chunk row tiers' dominance dedups at M = 32: tier * 33 entries.
+SHARED_SINGLE = 12_288
+# The in-chunk row tiers' dominance dedups at M = 32 (the pair crash-dom
+# headline) and M = 16 (the single-key one): tier * (1 + M) entries.
 M = 32
+M1 = 16
 
 
 @pytest.fixture(autouse=True)
@@ -191,7 +204,7 @@ def _jax_dom(n, force, iters):
 
 def _case(label):
     rng = np.random.default_rng(91)
-    cases = {c[0]: c for c in chip_smoke.dom_pair_cases(rng, SHARED_PAIRS)}
+    cases = {c[0]: c for c in chip_smoke.dom_cases(rng, SHARED_PAIRS, True)}
     return cases[label]
 
 
@@ -234,3 +247,263 @@ def test_card_capacity_inputs_straddle_the_shared_path(which):
     assert path == ("device" if which == 2 else "shared")
     assert routes == ("gate", "multi")
     assert psort.dom_one_launch(key.size)
+
+
+# --- the single-key dominance dedup's routes ---------------------------------
+
+@pytest.mark.parametrize("tier", tbfs.ROW_TIERS)
+def test_dom1_route_of_each_in_chunk_tier(tier):
+    n = tier * (1 + M1)
+    one = psort.pad_size(n) <= psort.DOM1_ONE_MAX_N
+    assert psort.dom_one_launch(n, pair=False) == one
+    # The single-key crash-dom headline's tiers 256 .. 4096 (n_pad 8,192
+    # .. 131,072) take the one launch.
+    assert one == (tier <= 4096)
+
+
+@pytest.mark.parametrize("cap", [262_144, 524_288])
+def test_dom1_host_caps_keep_the_multi_launch_chain(cap):
+    for m in (M1, M):
+        n = cap * (1 + m)
+        assert not psort.dom_one_launch(n, pair=False)
+        assert psort.pad_size(n) <= psort.DOM_MAX_N
+
+
+def test_dom1_gate_is_a_power_of_two_inside_the_kernels_limit():
+    g = psort.DOM1_ONE_MAX_N
+    assert g & (g - 1) == 0 and psort.MIN_N <= g <= psort.DOM_MAX_N
+    assert psort.dom_one_launch(g, pair=False)
+    assert not psort.dom_one_launch(g + 1, pair=False)
+
+
+@pytest.mark.parametrize("n", [1, 4352, SHARED_SINGLE, SHARED_SINGLE + 1,
+                               16_384, 69_632, 1 << 18])
+def test_dom1_scratch_of_each_path(n):
+    """As the pair dedup's: no device scratch while the valid entries
+    fit the shared buffers (12,288 8-byte entries), else two buffers of n
+    entries and n / 32 + 1 keep words; less than the chain's."""
+    words = psort_cuda.dom_one_scratch_words(n, False, SHARED_SINGLE)
+    if n <= SHARED_SINGLE:
+        assert words == 1
+    else:
+        assert words == 2 * n + (n // 32 + 2) // 2
+        assert 8 * words >= 2 * 8 * n + 4 * (n // 32 + 1)
+    n_pad = psort.pad_size(n)
+    multi = sum(t.numel() * t.element_size() for t in
+                psort_cuda._dom_scratch(n_pad, 1, torch.int32, "meta"))
+    assert multi == (2 * 8 + 1 + 4) * n_pad + 4 * (n_pad // 1024 + 1)
+    assert 8 * words < multi
+
+
+def test_dom1_wrapper_raises_without_a_kernel():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        psort.dedup_keys_dom(*_meta_words(1024)[:2], 0, 0, 256, force=True)
+
+
+@pytest.mark.parametrize("n,route", [(4352, "one"), (69_632, "one"),
+                                     (1 << 18, "one"),
+                                     ((1 << 18) + 1, "multi"),
+                                     (262_144 * 17, "multi")])
+def test_dom1_wrapper_routes_by_padded_size(monkeypatch, n, route):
+    """The single-key wrapper sends each call to one launcher by n_pad,
+    with the rounds and chain of its mode, and counts one launch a
+    call."""
+    calls = []
+
+    def one(*args):
+        calls.append(("one", args[4:]))
+        return None, torch.zeros(2, dtype=torch.int32)
+
+    def multi(*args):
+        calls.append(("multi", args[4:]))
+        return None, torch.zeros(2, dtype=torch.int32)
+
+    monkeypatch.setattr(psort, "_dom_kernel_args", lambda *a: None)
+    monkeypatch.setattr(psort_cuda, "dedup_dom_one", one)
+    monkeypatch.setattr(psort_cuda, "dedup_dom", multi)
+    before = psort.LAUNCHES["dedup_keys_dom"]
+    psort.dedup_keys_dom(*_meta_words(n)[:2], 0, 0, 256, force=True, iters=6)
+    assert psort.LAUNCHES["dedup_keys_dom"] == before + 1
+    want = (256, psort.DOM_CHAIN, 6) if route == "one" else \
+        (256, psort.pad_size(n), psort.DOM_CHAIN, 6)
+    assert calls == [(route, want)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dom1(n, force, iters):
+    return jax.jit(lambda key, valid, *m: jbfs._dedup_keys_dom(
+        key, valid, n, *m, use_psort=False, dom_force=force,
+        dom_iters=iters))
+
+
+def _case1(label):
+    rng = np.random.default_rng(90)
+    cases = {c[0]: c for c in chip_smoke.dom_cases(rng, SHARED_SINGLE,
+                                                   False)}
+    return cases[label]
+
+
+@pytest.mark.parametrize("label", ["chain-128", "every-entry-equal",
+                                   f"live={SHARED_SINGLE - 1}",
+                                   f"live={SHARED_SINGLE}",
+                                   f"live={SHARED_SINGLE + 1}"])
+def test_card_inputs_of_the_single_key_dedup_match_the_reference(label):
+    """The single-key dedup's card inputs through its plain version and
+    the reference's lax dominance dedup (jitted at cap = n, cut to cap),
+    in every mode: bit for bit, and the counts the card asserts."""
+    _, key, valid, cap, routes, want = _case1(label)
+    assert routes == ("gate", "multi")
+    cmask, rmask = chip_smoke.DOM_MASKS[False]
+    k = key.astype(np.uint32)
+    assert np.array_equal(k.astype(np.uint64), key)     # single u32 keys
+    words = tbfs._dom_split(_u32.bitmap_from_numpy(k, "cpu"),
+                            torch.from_numpy(valid), cmask, rmask)
+    got_counts = []
+    for force, iters in MODES:
+        got = psort.dedup_keys_dom_plain(*words, cmask, rmask, cap,
+                                         force=force, iters=iters)
+        ref, total, _ = (np.asarray(x) for x in _jax_dom1(
+            key.size, force, iters)(jnp.asarray(k), jnp.asarray(valid),
+                                    jnp.uint32(cmask), jnp.uint32(rmask)))
+        assert min(int(total), cap) == int(got[1])
+        assert (int(total) > cap) == bool(got[2])
+        g = _u32.bitmap_to_numpy(got[0])
+        r = ref[:cap]
+        assert np.array_equal(g[:r.size], r)
+        assert (g[r.size:] == FILL).all()
+        got_counts.append(int(got[1]))
+    if isinstance(want, list):
+        assert got_counts == want
+    else:
+        live = int(label.split("=")[1])
+        assert int(valid.sum()) == live
+        assert want == ("device" if live > SHARED_SINGLE else "shared")
+        assert psort.dom_one_launch(key.size, pair=False)
+
+
+# --- the pair compaction's routes --------------------------------------------
+
+@pytest.mark.parametrize("n,route", [(1024, "one"), (1500, "one"),
+                                     (16_384, "one"), (1 << 17, "one"),
+                                     ((1 << 17) + 1, "bitonic"),
+                                     (1 << 19, "bitonic")])
+def test_compact2_wrapper_routes_by_padded_size(monkeypatch, n, route):
+    """``compact_keys2`` sends each call to one launcher by n_pad (the
+    one launch up to COMPACT2_ONE_MAX_N, the bitonic network above, up
+    to PSORT_MAX_N), checks the size against that launcher's limit, and
+    counts one launch a call."""
+    calls, limits = [], []
+
+    def one(hi, lo, cap):
+        calls.append(("one", cap))
+        return None, None, torch.zeros(1, dtype=torch.int32)
+
+    def bitonic(hi, lo, cap, n_pad):
+        calls.append(("bitonic", cap, n_pad))
+        return None, None, torch.zeros(1, dtype=torch.int32)
+
+    monkeypatch.setattr(psort, "_pair_kernel_args",
+                        lambda hi, lo, what, max_n: limits.append(max_n))
+    monkeypatch.setattr(psort_cuda, "compact2_one", one)
+    monkeypatch.setattr(psort_cuda, "compact2", bitonic)
+    before = psort.LAUNCHES["compact_keys2"]
+    words = _meta_words(n)
+    psort.compact_keys2(words[0], words[1], 256)
+    assert psort.LAUNCHES["compact_keys2"] == before + 1
+    assert psort.compact2_one_launch(n) == (route == "one")
+    if route == "one":
+        assert calls == [("one", 256)]
+        assert limits == [psort.COMPACT2_ONE_LIMIT]
+    else:
+        assert calls == [("bitonic", 256, psort.pad_size(n))]
+        assert limits == [psort.PSORT_MAX_N]
+
+
+def test_compact2_gate_sits_inside_both_launchers_limits():
+    g = psort.COMPACT2_ONE_MAX_N
+    assert g & (g - 1) == 0 and psort.MIN_N <= g <= psort.PSORT_MAX_N
+    assert g <= psort.COMPACT2_ONE_LIMIT
+    assert psort.compact2_one_launch(g) and not psort.compact2_one_launch(
+        g + 1)
+
+
+@pytest.mark.parametrize("n", [1, 1024, SHARED_SINGLE, SHARED_SINGLE + 1,
+                               1 << 17])
+def test_compact2_scratch_of_each_path(n):
+    words = psort_cuda.compact2_one_scratch_words(n, SHARED_SINGLE)
+    assert words == (1 if n <= SHARED_SINGLE else 2 * n)
+
+
+def test_compact2_wrapper_raises_without_a_kernel():
+    words = _meta_words(1024)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        psort.compact_keys2(words[0], words[1], 256)
+
+
+@pytest.fixture(scope="module")
+def compact2_cases():
+    """The one-launch compaction's card inputs at n = 1024 with the
+    reference's interpret-mode Pallas ``compact_keys2`` outputs."""
+    rng = np.random.default_rng(83)
+    out = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT", "interpret")
+        for label, hi, lo, cap in chip_smoke.compact2_cases(rng, 1024):
+            ref = jpsort.compact_keys2(jnp.asarray(hi), jnp.asarray(lo), cap)
+            out.append((label, hi, lo, cap,
+                        tuple(np.asarray(x) for x in ref)))
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_compact2_card_inputs_match_pallas(compact2_cases, which):
+    label, hi, lo, cap, (rh, rl, rc) = compact2_cases[which]
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    live = key != np.uint64((1 << 64) - 1)
+    lk = key[live]
+    descents = int((lk[1:] < lk[:-1]).sum())
+    if which == 0:
+        assert descents == 0 and live.sum() > cap
+    elif which == 1:
+        assert descents == 1 and lk[-1] < lk[-2]
+    else:
+        assert descents == 0 and hi[np.flatnonzero(live)[-1]] == FILL
+    args = (_u32.bitmap_from_numpy(hi, "cpu"),
+            _u32.bitmap_from_numpy(lo, "cpu"), cap)
+    th, tl, tc = psort.compact_keys2_plain(*args)
+    assert np.array_equal(_u32.bitmap_to_numpy(th), rh.astype(np.uint32))
+    assert np.array_equal(_u32.bitmap_to_numpy(tl), rl.astype(np.uint32))
+    assert int(tc) == int(rc) == min(int(live.sum()), cap)
+    before = dict(psort.LAUNCHES)
+    wrapped = psort.compact_keys2(*args)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, (th, tl, tc)))
+    assert psort.LAUNCHES == before            # plain on the CPU
+
+
+def test_engine_hands_the_pair_compaction_ascending_live_pairs(monkeypatch):
+    """The sparse engine's pair return filter compacts survivors of an
+    ascending frontier with one bit cleared: the live pairs it hands
+    ``compact_keys2`` are ascending in input order, with KEY_FILL holes,
+    which is what keeps the one launch on its ordered path (speed, not
+    correctness: the kernel sorts any other input)."""
+    h = tsynth.generate_register_history(300, concurrency=40, seed=3,
+                                         value_range=60)
+    p = prepare.prepare(tm.cas_register(), h)
+    assert tbfs.band_error(p) is None and p.window >= 26
+    seen = []
+    compact = psort.compact_keys2
+
+    def spy(hi, lo, cap):
+        seen.append(_u32.pair_key(hi, lo))
+        return compact(hi, lo, cap)
+
+    monkeypatch.setattr(psort, "compact_keys2", spy)
+    r = tbfs.check_packed(p, device="cpu")
+    assert r["valid?"] is True and r["engine-stats"]["compactions"] > 0
+    assert seen
+    holes = 0
+    for k in seen:
+        live = k[k != _u32.PAIR_FILL]
+        assert bool((live[1:] > live[:-1]).all())
+        holes += int(live.numel() < k.numel())
+    assert holes == len(seen)
