@@ -28,8 +28,12 @@ raises on a failure:
    ``dedup_keys`` at n = 2^10 ... 2^21 and the unpadded 1,500, 262,151
    and 1,048,573 (overflowing, all valid, all invalid, every key equal,
    exactly cap and cap + 1 survivors, one key apart in bit 30),
-   ``compact_keys`` at n = 2^10 ... 2^19 and 1,500 (sorted-with-holes
-   and arbitrary inputs), and ``fixpoint``
+   ``compact_keys`` at n = 2^10 ... 2^19 and 1,500 through both of its
+   routes (one launch, bitonic network; ascending with holes, arbitrary,
+   more live keys than cap, a descent in the last live key, ascending
+   across bit 31, a bit-31 key before a smaller one, every key
+   KEY_FILL), which must run the one launch's ordered path and both of
+   its sorted paths (shared, device memory), and ``fixpoint``
    on the sparse headline's own rows and frontiers at every row tier its
    gate admits, converged, at ``it_max=1`` and overflowing, and on an
    entry whose every column is legal for every key (the worst case), an
@@ -38,10 +42,12 @@ raises on a failure:
 8. the sparse headline: a 20k-op, concurrency-24 CAS-register history
    (window 24) through ``checker.linearizable(algorithm="gpu")``, which
    must say valid by ``gpu-bfs`` with every sparse kernel launched and
-   its known launch and fetch counts; then a device check (at 2.5k
-   ops, to keep the script inside its time limit) with each kernel
-   call's device time taken by CUDA events behind a spin gate
-   (``CallTimer``);
+   its known launch and fetch counts, counting ``compact_keys``'s calls
+   by route, path and size (every call inside the gate
+   ``psort.COMPACT_ONE_MAX_N`` must run the ordered path); then a device
+   check (at 2.5k ops, to keep the script inside its time limit) with
+   each kernel call's device time taken by CUDA events behind a spin
+   gate (``CallTimer``);
 9. a corrupted window-24 history through ``"gpu"`` and ``"cpu"``: both
    invalid on the same op and dead row, with final paths from the GPU;
 10. each sparse kernel's time, its plain version's and one PyTorch
@@ -49,8 +55,13 @@ raises on a failure:
     frequent shapes, with its bound; ``fixpoint`` also at every fused
     tier, and at tier 16,384 (past its gate ``psort_fused.fits``, through
     the binding) bit-exact and beside the unfused pass chain on the
-    headline's own rows; and ``dedup_keys`` at the spike
-    tiers' sizes n = 2^19, 2^20 and 2^21 beside the engine's torch.sort
+    headline's own rows; ``compact_keys`` through each route beside
+    ``torch.sort`` and its plain version at every size of phase 7 on
+    ascending-with-holes and arbitrary input, and at every size (row
+    tier or chunk cap) the headline compacted at, on its first recorded
+    input there (the measurements behind ``psort.COMPACT_ONE_MAX_N``);
+    and ``dedup_keys`` at the spike tiers' sizes n = 2^19, 2^20 and
+    2^21 beside the engine's torch.sort
     twin (``bfs._dedup_keys_sort``) and ``torch.unique``, on the
     headline shape's candidates tiled to each size, with its launches
     per call (the launcher's count, which must be 2 + key bytes) and
@@ -77,8 +88,9 @@ raises on a failure:
     (window 29, past one u32 key) through ``checker.linearizable``,
     valid by ``gpu-bfs`` with every pair kernel launched and its known
     launch and fetch counts, then a timed device check, as in phase 8,
-    which counts ``compact_keys2``'s calls by path and records the
-    inputs of a few spike compactions (past the compaction gate);
+    which counts ``compact_keys2``'s calls by path (inside the gate all
+    ordered) and records the inputs of a few spike compactions (past the
+    compaction gate);
 13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
@@ -104,8 +116,9 @@ raises on a failure:
 16. the single-key crash-dom headline: a 5k-op partition-nemesis history
     at config 5's pacing (window 25, crashed mutators) through
     ``checker.linearizable(algorithm="gpu")``, valid by ``gpu-bfs`` with
-    ``dedup_keys_dom`` launched, then a clean device check and one timed
-    per kernel call;
+    ``dedup_keys_dom`` launched and ``compact_keys``'s calls counted by
+    route, path and size (inside the gate all ordered), then a
+    clean device check and one timed per kernel call;
 17. the pair-key crash-dom headline: the same at 20k ops (window 38,
     two-word bitsets, rows in the host-row executor), valid by
     ``gpu-bfs`` with ``dedup_keys2_dom`` launched (its run through the
@@ -500,44 +513,84 @@ def compact2_cases(rng, n):
             ("live pair with hi KEY_FILL", *split(top), n)]
 
 
-def compact_path() -> str:
-    """The path of the latest ``compact_keys2`` on the card: "bitonic"
-    (the network), or the one launch's "ordered" (no sort), "shared" or
+def compact_cases(rng, n):
+    """Seeded (label, keys, cap) cases of the single-key compaction at
+    size n that the one launch must tell apart, its live keys spread over
+    all 32 bits: ascending with holes and more live keys than cap;
+    ascending but for a descent in the last live key (so the whole input
+    must be sorted); ascending across bit 31 (0x80000000 ... 0xFFFFFFFE
+    sort after every key below them and before KEY_FILL); the first live
+    key with bit 31 set moved before the live key below it (a descent in
+    unsigned order only); every key KEY_FILL."""
+    import numpy as np
+
+    def holes():
+        u = np.unique(rng.integers(0, 1 << 31, 2 * n, dtype=np.uint64))
+        k = np.sort(rng.permutation(u)[:n]) * np.uint64(2)  # even, < FILL
+        gone = rng.random(n) < 0.3
+        gone[0] = False                                # a live key
+        k[gone] = FILL
+        return k.astype(np.uint32)
+
+    more = holes()
+    live = int((more != FILL).sum())
+    down = holes()
+    at = np.flatnonzero(down != FILL)
+    down[at[-1]] = down[at[-2]] - np.uint32(1)         # odd: distinct
+    top = holes()
+    swap = holes()
+    at = np.flatnonzero(swap != FILL)
+    high = at[swap[at] >= np.uint32(1 << 31)][0]
+    below = at[at < high][-1]
+    swap[[below, high]] = swap[[high, below]]
+    return [("ascending, live > cap", more, max(live // 2, 1)),
+            ("descent in the last live key", down, n),
+            ("ascending across bit 31", top, n),
+            ("a bit-31 key before a smaller one", swap, n),
+            ("every key KEY_FILL", np.full(n, FILL, np.uint32), n)]
+
+
+def compact_path(width: int) -> str:
+    """The path of the latest compaction of ``width``-byte keys on the
+    card (4: ``compact_keys``, 8: ``compact_keys2``): "bitonic" (the
+    network), or the one launch's "ordered" (no sort), "shared" or
     "device" (sorted in shared or device memory) from its path word."""
     from jepsen_tpu_torch.lin import psort_cuda
 
-    if psort_cuda.last_compact_route != "one":
+    if psort_cuda.last_compact_route[width] != "one":
         return "bitonic"
     return {psort_cuda.PATH_ORDERED: "ordered",
             psort_cuda.PATH_SHARED: "shared",
             psort_cuda.PATH_DEVICE: "device"}[
-                int(psort_cuda.last_compact_path)]
+                int(psort_cuda.last_compact_path[width])]
 
 
 @contextlib.contextmanager
-def compact_route(route: str):
-    """``compact_keys2``'s route while inside: "gate" (by
+def compact_route(width: int, route: str):
+    """The route of the compaction of ``width``-byte keys while inside:
+    "gate" (by ``psort.COMPACT_ONE_MAX_N``, pairs
     ``psort.COMPACT2_ONE_MAX_N``), "one" (one launch up to its limit) or
     "bitonic" (the network)."""
     from jepsen_tpu_torch.lin import psort
 
-    saved = psort.COMPACT2_ONE_MAX_N
-    psort.COMPACT2_ONE_MAX_N = {"gate": saved,
-                                "one": psort.COMPACT2_ONE_LIMIT,
-                                "bitonic": 0}[route]
+    name = "COMPACT_ONE_MAX_N" if width == 4 else "COMPACT2_ONE_MAX_N"
+    saved = getattr(psort, name)
+    setattr(psort, name, {"gate": saved, "one": psort.COMPACT_ONE_LIMIT,
+                          "bitonic": 0}[route])
     try:
         yield
     finally:
-        psort.COMPACT2_ONE_MAX_N = saved
+        setattr(psort, name, saved)
 
 
 def check_sort_kernels(dev, pair: bool) -> int:
     """Phase 7a / 11a: dedup_keys (``pair``: dedup_keys2) against its
     plain version at every size of DEDUP_SIZES, compact_keys (or
-    compact_keys2, through both of its routes, also on
-    :func:`compact2_cases`) at every size of COMPACT_SIZES. On the card
-    ``compact_keys2`` must run its ordered path and both sorted paths.
-    Returns the max word error (0, or it raises)."""
+    compact_keys2) through both of its routes, also on
+    :func:`compact_cases` (:func:`compact2_cases`), at every size of
+    COMPACT_SIZES. On the card the compaction must run its one launch's
+    ordered path and both sorted paths, and the network. Returns the max
+    word error (0, or it raises)."""
     import numpy as np
     import torch
 
@@ -549,6 +602,7 @@ def check_sort_kernels(dev, pair: bool) -> int:
 
     rng = np.random.default_rng(79 if pair else 77)
     tag = "2" if pair else ""
+    width = 8 if pair else 4
     max_err = 0
     paths = {}
     for n in DEDUP_SIZES:
@@ -571,14 +625,17 @@ def check_sort_kernels(dev, pair: bool) -> int:
             runs = [("dedup_keys", psort.dedup_keys, psort.dedup_keys_plain,
                      (t(k), torch.from_numpy(v).to(dev), cap), None)
                     for k, v, cap in dedup]
-            runs += [("compact_keys", psort.compact_keys,
-                      psort.compact_keys_plain, (t(k), cap), None)
-                     for k, cap in compact if n in COMPACT_SIZES]
+            if n in COMPACT_SIZES:
+                compact += [c[1:] for c in compact_cases(rng, n)]
+                runs += [("compact_keys", psort.compact_keys,
+                          psort.compact_keys_plain, (t(k), cap), route)
+                         for k, cap in compact
+                         for route in ("one", "bitonic")]
         for name, kern_fn, plain_fn, args, route in runs:
-            with compact_route(route or "gate"):
+            with compact_route(width, route or "gate"):
                 kern = kern_fn(*args)
             if route and dev.type == "cuda":
-                p = compact_path()
+                p = compact_path(width)
                 paths[p] = paths.get(p, 0) + 1
                 flags.append(f"{route}:{p}")
             plain = plain_fn(*args)
@@ -595,11 +652,11 @@ def check_sort_kernels(dev, pair: bool) -> int:
         log(f"[sort{tag}-vs-plain] n={n:7d} bit_exact=True counts (dedup+ = "
             f"overflow; then compact, after its route:path) "
             f"{' '.join(flags)}")
-    if pair and dev.type == "cuda":
-        log(f"[compact_keys2-paths] runs by path: {paths}")
+    if dev.type == "cuda":
+        log(f"[compact_keys{tag}-paths] runs by path: {paths}")
         if not {"ordered", "shared", "device", "bitonic"} <= paths.keys():
-            raise AssertionError(f"compact_keys2 paths run: {paths}, want "
-                                 "ordered, shared, device and bitonic")
+            raise AssertionError(f"compact_keys{tag} paths run: {paths}, "
+                                 "want ordered, shared, device and bitonic")
     return max_err
 
 
@@ -927,14 +984,15 @@ def reset_launches():
 
 
 def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
-             clean_check: bool = True, spies=()):
+             clean_check: bool = True, spies=(), run_spies=()):
     """A sparse headline through ``checker.linearizable(algorithm="gpu")``
     with the launch counts of ``kernels`` (name -> (module, wrapper)) set
-    to 0 just before and read just after; then (``clean_check``) a clean
-    device check, and a device check of ``timed_h`` (default: the same
-    history) with each kernel call timed by CUDA events behind a spin
-    gate, and ``spies`` (context managers) installed. Returns (result,
-    launches, per-kernel summed ms of the timed check)."""
+    to 0 just before and read just after, and ``run_spies`` (context
+    managers) installed; then (``clean_check``) a clean device check, and
+    a device check of ``timed_h`` (default: the same history) with each
+    kernel call timed by CUDA events behind a spin gate, and ``spies``
+    installed. Returns (result, launches, per-kernel summed ms of the
+    timed check)."""
     import torch
 
     from jepsen_tpu_torch import checker
@@ -944,11 +1002,14 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
-    reset_launches()
-    t0 = time.perf_counter()
-    r = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
-                                                                h)
-    t_e2e = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        for spy in run_spies:
+            stack.enter_context(spy)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = checker.linearizable(algorithm="gpu", device=dev).check(
+            None, model, h)
+        t_e2e = time.perf_counter() - t0
     launches = {k: counters[mod][k] for k, (mod, _) in kernels.items()}
     stats = r.get("engine-stats") or {}
     n = len(h) // 2
@@ -1028,29 +1089,42 @@ def dropped_pairs(lo, hi, count: int, s: int, b: int):
 
 
 class CompactSpy:
-    """While installed: the path of every ``compact_keys2`` call on the
-    card (the one launch's path word, or "bitonic"), and the inputs of
-    the first SPIKE_COMPACTIONS compactions past the compaction gate
-    (the engine's torch.sort), recorded from the return filter."""
+    """While installed: the route, path and size of every compaction of
+    ``width``-byte keys on the card (4: ``compact_keys``, 8:
+    ``compact_keys2``; the one launch's path word, or "bitonic"), and
+    inputs to time again: for single keys the first call's at each size
+    (the return filter compacts cap keys, so one a row tier or chunk
+    cap), for pairs the first SPIKE_COMPACTIONS compactions past the
+    compaction gate (the engine's torch.sort), recorded from the return
+    filter."""
 
-    def __init__(self):
-        self.words, self.bitonic, self.spikes = [], 0, []
+    def __init__(self, width: int):
+        self.width = width
+        self.calls, self.firsts, self.spikes = [], {}, []
 
     def __enter__(self):
         from jepsen_tpu_torch.lin import bfs, psort, psort_cuda
 
-        one, net, filt = self.saved = (psort_cuda.compact2_one,
-                                       psort_cuda.compact2,
-                                       bfs._filter_pass_keys2)
+        suffix = "" if self.width == 4 else "2"
+        one, net = self.saved = (getattr(psort_cuda, f"compact{suffix}_one"),
+                                 getattr(psort_cuda, f"compact{suffix}"))
+        filt = self.saved_filter = bfs._filter_pass_keys2
 
-        def one_spy(*a, **k):
-            out = one(*a, **k)
-            self.words.append(psort_cuda.last_compact_path)
+        def record(args, cap, path):
+            n = args[-1].numel()
+            self.calls.append((n, path))
+            if self.width == 4 and n not in self.firsts:
+                self.firsts[n] = (args[0].clone(), cap)
+
+        def one_spy(*args):
+            out = one(*args)
+            record(args[:-1], args[-1],
+                   psort_cuda.last_compact_path[self.width])
             return out
 
-        def net_spy(*a, **k):
-            self.bitonic += 1
-            return net(*a, **k)
+        def net_spy(*args):
+            record(args[:-2], args[-2], None)
+            return net(*args)
 
         def filt_spy(lo, hi, count, s, *, cap, b, n_keep=None):
             if not psort.available(cap) and \
@@ -1060,18 +1134,22 @@ class CompactSpy:
                     self.spikes.append((d_hi, d_lo, cap))
             return filt(lo, hi, count, s, cap=cap, b=b, n_keep=n_keep)
 
-        psort_cuda.compact2_one, psort_cuda.compact2 = one_spy, net_spy
-        bfs._filter_pass_keys2 = filt_spy
+        setattr(psort_cuda, f"compact{suffix}_one", one_spy)
+        setattr(psort_cuda, f"compact{suffix}", net_spy)
+        if self.width == 8:
+            bfs._filter_pass_keys2 = filt_spy
         return self
 
     def __exit__(self, *exc):
         from jepsen_tpu_torch.lin import bfs, psort_cuda
 
-        psort_cuda.compact2_one, psort_cuda.compact2, \
-            bfs._filter_pass_keys2 = self.saved
+        suffix = "" if self.width == 4 else "2"
+        setattr(psort_cuda, f"compact{suffix}_one", self.saved[0])
+        setattr(psort_cuda, f"compact{suffix}", self.saved[1])
+        bfs._filter_pass_keys2 = self.saved_filter
 
     def paths(self) -> dict:
-        """Calls by path."""
+        """Calls by path, and by size and path."""
         import torch
 
         from jepsen_tpu_torch.lin import psort_cuda
@@ -1079,12 +1157,35 @@ class CompactSpy:
         names = {psort_cuda.PATH_ORDERED: "ordered",
                  psort_cuda.PATH_SHARED: "shared",
                  psort_cuda.PATH_DEVICE: "device"}
-        out = {"ordered": 0, "shared": 0, "device": 0,
-               "bitonic": self.bitonic}
-        if self.words:
-            for w in torch.cat(self.words).tolist():
-                out[names[w]] += 1
+        words = [w for _, w in self.calls if w is not None]
+        it = iter(torch.cat(words).tolist() if words else [])
+        out = {"ordered": 0, "shared": 0, "device": 0, "bitonic": 0}
+        sizes = {}
+        for n, w in self.calls:
+            path = "bitonic" if w is None else names[next(it)]
+            out[path] += 1
+            size = sizes.setdefault(n, {})
+            size[path] = size.get(path, 0) + 1
+        out["by_n"] = dict(sorted(sizes.items()))
         return out
+
+    def check_ordered(self, tag: str, gate: int) -> dict:
+        """Logs the calls by path and size, and fails unless every call
+        whose padded size is at most ``gate`` ran the one launch's ordered
+        path: the return filter hands the compaction its live keys
+        ascending. Returns :meth:`paths`."""
+        from jepsen_tpu_torch.lin import psort
+
+        paths = self.paths()
+        log(f"[{tag}] compact_keys{'' if self.width == 4 else '2'} calls "
+            f"by path: { {k: v for k, v in paths.items() if k != 'by_n'} }"
+            f"; by n: {paths['by_n']}")
+        off = {n: p for n, p in paths["by_n"].items()
+               if psort.pad_size(n) <= gate and set(p) != {"ordered"}}
+        if off:
+            raise AssertionError(f"{tag}: compactions up to the gate {gate} "
+                                 f"off the ordered path: {off}")
+        return paths
 
 
 def counterexample(dev, model, h, seed: int, tag: str):
@@ -1426,17 +1527,15 @@ def shape_times(eng, fronts, stats, pair: bool):
     lib = time_chunk(lambda: torch.sort(key), 50)
     bound, by = sort_bound(c_tier, c_tier, 4 * words, 4 * words)
     out[name] = (ms, plain, lib, bound, by, {"n": c_tier, "cap": c_tier})
-    routes = ""
-    if pair:
-        kern(*args)
-        path = compact_path() if dev.type == "cuda" else "plain"
-        for route in ("one", "bitonic"):
-            with compact_route(route):
-                out[name][-1][f"{route}_ms"] = time_chunk(
-                    lambda: kern(*args), 50)
-        out[name][-1]["path"] = path
-        routes = (f" ({path}; one launch {out[name][-1]['one_ms']:.4f} ms, "
-                  f"bitonic {out[name][-1]['bitonic_ms']:.4f} ms)")
+    kern(*args)
+    path = compact_path(4 * words) if dev.type == "cuda" else "plain"
+    for route in ("one", "bitonic"):
+        with compact_route(4 * words, route):
+            out[name][-1][f"{route}_ms"] = time_chunk(
+                lambda: kern(*args), 50)
+    out[name][-1]["path"] = path
+    routes = (f" ({path}; one launch {out[name][-1]['one_ms']:.4f} ms, "
+              f"bitonic {out[name][-1]['bitonic_ms']:.4f} ms)")
     log(f"[{tag}-time] {name} n={c_tier} (pad {psort.pad_size(c_tier)}, "
         f"{int(count)} entering, {int((d_lo != psort.KEY_FILL_RAW).sum())} "
         f"kept): kernel {ms:.4f} ms{routes}, plain {plain:.4f} ms, "
@@ -1498,13 +1597,16 @@ REPLACES = {"dedup_keys": "jepsen_tpu/lin/psort.py:741",
             "dedup_keys2_dom": "jepsen_tpu/lin/psort.py:616"}
 
 
-def compact_times(dev, spikes) -> dict:
-    """Phase 14b: ``compact_keys2`` through each route at every size of
-    COMPACT_SIZES on the engine's input (ascending with holes) and on
-    arbitrary input (phase 11's cases), with the one launch's path; and
-    the one launch against the engine's torch.sort on the pair headline's
-    spike compactions (``spikes``: (hi, lo, cap) recorded by
-    :class:`CompactSpy`), bit-exact. The measurements behind
+def compact_times(dev, spy) -> dict:
+    """Phase 10b / 14b: the compaction of ``spy.width``-byte keys through
+    each route at every size of COMPACT_SIZES on the engine's input
+    (ascending with holes) and on arbitrary input (phase 7's / 11's
+    cases), with the one launch's path, beside ``torch.sort`` and the
+    plain version; then for single keys each route at every size the
+    headline compacted at, on the first input :class:`CompactSpy`
+    recorded there, and for pairs the one launch against the engine's
+    torch.sort on the recorded spike compactions, both bit-exact. The
+    measurements behind ``psort.COMPACT_ONE_MAX_N`` and
     ``psort.COMPACT2_ONE_MAX_N``."""
     import numpy as np
     import torch
@@ -1512,42 +1614,89 @@ def compact_times(dev, spikes) -> dict:
     from jepsen_tpu_torch import _u32
     from jepsen_tpu_torch.lin import psort
 
-    rng = np.random.default_rng(81)
+    width = spy.width
+    pair = width == 8
     on_card = dev.type == "cuda"
+    suffix = "2" if pair else ""
+    kern = getattr(psort, f"compact_keys{suffix}")
+    plain = getattr(psort, f"compact_keys{suffix}_plain")
+    gate = psort.compact2_one_launch if pair else psort.compact_one_launch
+
+    def t(a):
+        return _u32.bitmap_from_numpy(a, dev)
+
+    def sort_key(args):
+        return _u32.pair_key(*args[:2]) if pair else _u32.widen(args[0])
+
+    def routes(args, reps):
+        key = sort_key(args)
+        with compact_route(width, "one"):
+            kern(*args)
+            path = compact_path(width) if on_card else "plain"
+            one = time_chunk(lambda: kern(*args), reps)
+        with compact_route(width, "bitonic"):
+            net = time_chunk(lambda: kern(*args), reps)
+        return {"path": path, "one_ms": one, "bitonic_ms": net,
+                "torch_sort_ms": time_chunk(lambda: torch.sort(key), reps),
+                "plain_ms": time_chunk(lambda: plain(*args), reps)}
+
+    def note(r):
+        return (f"({r['path']}) one launch {r['one_ms']:.4f} ms, bitonic "
+                f"{r['bitonic_ms']:.4f} ms, torch.sort "
+                f"{r['torch_sort_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+
+    rng = np.random.default_rng(81 if pair else 80)
     sizes, paths = [], set()
     for n in COMPACT_SIZES:
-        _, compact = pair_inputs(rng, n)
+        if pair:
+            _, compact = pair_inputs(rng, n)
+            compact = [(t(h), t(lo), cap) for h, lo, cap in compact]
+        else:
+            _, compact = sort_inputs(rng, n)
+            compact = [(t(k), cap) for k, cap in compact]
         row = {"n": n}
-        for label, (h, lo, cap) in zip(("ascending", "arbitrary"), compact):
-            args = (_u32.bitmap_from_numpy(h, dev),
-                    _u32.bitmap_from_numpy(lo, dev), cap)
-            reps = 20 if n < 1 << 18 else 5
-            with compact_route("one"):
-                psort.compact_keys2(*args)
-                path = compact_path() if on_card else "plain"
-                one = time_chunk(lambda: psort.compact_keys2(*args), reps)
-            with compact_route("bitonic"):
-                net = time_chunk(lambda: psort.compact_keys2(*args), reps)
-            paths.add(path)
-            row[label] = {"path": path, "one_ms": one, "bitonic_ms": net}
+        for label, args in zip(("ascending", "arbitrary"), compact):
+            row[label] = routes(args, 20 if n < 1 << 18 else 5)
+            paths.add(row[label]["path"])
         sizes.append(row)
-        a, r = row["ascending"], row["arbitrary"]
-        log(f"[compact2-route-time] n={n:6d}: ascending with holes "
-            f"({a['path']}) one launch {a['one_ms']:.4f} ms, bitonic "
-            f"{a['bitonic_ms']:.4f} ms; arbitrary ({r['path']}) one launch "
-            f"{r['one_ms']:.4f} ms, bitonic {r['bitonic_ms']:.4f} ms; "
-            f"gate routes it to the "
-            f"{'one launch' if psort.compact2_one_launch(n) else 'bitonic'}")
+        log(f"[compact{suffix}-route-time] n={n:6d}: ascending with holes "
+            f"{note(row['ascending'])}; arbitrary {note(row['arbitrary'])};"
+            f" gate routes it to the "
+            f"{'one launch' if gate(n) else 'bitonic'}")
     if on_card and paths != {"ordered", "shared", "device"}:
-        raise AssertionError(f"compact_keys2 timing runs took {paths}")
+        raise AssertionError(f"compact_keys{suffix} timing runs took "
+                             f"{paths}")
+    out = {"route_times": sizes, "gate": psort.COMPACT2_ONE_MAX_N if pair
+           else psort.COMPACT_ONE_MAX_N}
+    if not pair:
+        tiers = []
+        for n, (keys, cap) in sorted(spy.firsts.items()):
+            args = (keys, cap)
+            with compact_route(width, "one"):
+                same, err = same_outputs(kern(*args), plain(*args))
+            if not same:
+                raise AssertionError(f"compact_keys at n {n}: the one "
+                                     f"launch != plain, error {err}")
+            r = routes(args, 50 if n < 1 << 16 else 10)
+            live = int((keys != psort.KEY_FILL_RAW).sum())
+            bound, by = sort_bound(n, cap, 4, 4)
+            tiers.append({"n": n, "n_pad": psort.pad_size(n), "cap": cap,
+                          "live": live, "bound_ms": bound, "bound_by": by,
+                          **r})
+            log(f"[compact-tier-time] n={n} n_pad={psort.pad_size(n)} "
+                f"cap={cap} live={live} (bit-exact): {note(r)}; bound "
+                f"{bound:.6f} ms ({by}); gate routes it to the "
+                f"{'one launch' if gate(n) else 'bitonic'}")
+        out["tiers"] = tiers
+        return out
     spike = []
-    for d_hi, d_lo, cap in spikes:
+    for d_hi, d_lo, cap in spy.spikes:
         def sort():
             return _u32.pair_split(torch.sort(_u32.pair_key(d_hi, d_lo))[0])
 
-        with compact_route("one"):
+        with compact_route(width, "one"):
             got = psort.compact_keys2(d_hi, d_lo, cap)
-            path = compact_path() if on_card else "plain"
+            path = compact_path(width) if on_card else "plain"
             want = sort()
             same, err = same_outputs(got[:2], want)
             if not same or int(got[2]) != int((d_lo != -1).logical_or(
@@ -1561,8 +1710,8 @@ def compact_times(dev, spikes) -> dict:
         log(f"[compact2-spike] n={d_lo.numel()} cap={cap} live="
             f"{int(got[2])}: one launch ({path}, bit-exact) {one:.4f} ms, "
             f"the engine's torch.sort {srt:.4f} ms")
-    return {"route_times": sizes, "spike": spike,
-            "gate": psort.COMPACT2_ONE_MAX_N}
+    out["spike"] = spike
+    return out
 
 
 def kernel_entries(times, launches, errs, per_kernel, extra) -> list:
@@ -1584,7 +1733,7 @@ def sparse_phases(dev) -> list:
     """Phases 7-10, the single-key band. Returns its kernels' entries of
     the kernels line."""
     from jepsen_tpu_torch import models as m
-    from jepsen_tpu_torch.lin import bfs, prepare, synth
+    from jepsen_tpu_torch.lin import bfs, prepare, psort, synth
 
     model = m.cas_register()
     h = synth.generate_register_history(**SPARSE)
@@ -1609,16 +1758,21 @@ def sparse_phases(dev) -> list:
                "compact_keys": ("psort", "compact_keys"),
                "fixpoint": ("psort_fused", "fixpoint_flags")}
     # Its run through the entry point is its clean run (a separate clean
-    # device check would not fit the script's time limit).
+    # device check would not fit the script's time limit); it counts
+    # compact_keys's calls by route, path and size, and records the first
+    # input at each size for phase 10.
+    spy = CompactSpy(4)
     r, launches, per_kernel = headline(
         dev, model, h, kernels, "sparse",
         timed_h=synth.generate_register_history(**SPARSE_TIMED),
-        clean_check=False)
+        clean_check=False, run_spies=(spy,))
     fetches = r["engine-stats"]["fetches"]
     if launches != SPARSE_LAUNCHES or fetches != SPARSE_FETCHES:
         raise AssertionError(f"single-key headline: launches {launches} "
                              f"fetches {fetches}, expected "
                              f"{SPARSE_LAUNCHES} and {SPARSE_FETCHES}")
+    compact_paths = spy.check_ordered("sparse-headline",
+                                      psort.COMPACT_ONE_MAX_N)
 
     # 9. a single-key counterexample, GPU against the CPU oracle
     counterexample(dev, model, h, SPARSE_CORRUPT_SEED, "sparse")
@@ -1630,7 +1784,9 @@ def sparse_phases(dev) -> list:
             "fixpoint": fix_err}
     extra = {"dedup_keys": {"sizes": list(DEDUP_SIZES),
                             **dedup_extra["dedup_keys"]},
-             "compact_keys": {"sizes": list(COMPACT_SIZES)},
+             "compact_keys": {"sizes": list(COMPACT_SIZES),
+                              "headline_paths": compact_paths,
+                              **compact_times(dev, spy)},
              "fixpoint": {"tiers": fix_tiers, "paths": fix_paths,
                           **dedup_extra["fixpoint"]}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
@@ -1640,7 +1796,7 @@ def pair_phases(dev) -> list:
     """Phases 11-14, the pair-key band. Returns its kernels' entries of
     the kernels line."""
     from jepsen_tpu_torch import models as m
-    from jepsen_tpu_torch.lin import bfs, prepare, synth
+    from jepsen_tpu_torch.lin import bfs, prepare, psort, synth
 
     model = m.cas_register()
     h = synth.generate_register_history(**PAIR)
@@ -1667,7 +1823,7 @@ def pair_phases(dev) -> list:
     # Its run through the entry point is its clean run, as in phase 8;
     # its timed run counts compact_keys2's paths and records spike
     # compactions.
-    spy = CompactSpy()
+    spy = CompactSpy(8)
     r, launches, per_kernel = headline(dev, model, h, kernels, "pair",
                                        clean_check=False, spies=(spy,))
     fetches = r["engine-stats"]["fetches"]
@@ -1675,9 +1831,9 @@ def pair_phases(dev) -> list:
         raise AssertionError(f"pair headline: launches {launches} fetches "
                              f"{fetches}, expected {PAIR_LAUNCHES} and "
                              f"{PAIR_FETCHES}")
-    compact_paths = spy.paths()
-    log(f"[pair-headline] compact_keys2 calls of the timed run by path: "
-        f"{compact_paths}; {len(spy.spikes)} spike compactions recorded")
+    compact_paths = spy.check_ordered("pair-headline timed run",
+                                      psort.COMPACT2_ONE_MAX_N)
+    log(f"[pair-headline] {len(spy.spikes)} spike compactions recorded")
 
     # 13. a wide pair history (window > 32, two-word bitsets): a
     # counterexample against the CPU oracle
@@ -1696,7 +1852,7 @@ def pair_phases(dev) -> list:
                              **dedup_extra["dedup_keys2"]},
              "compact_keys2": {"sizes": list(COMPACT_SIZES),
                                "headline_paths": compact_paths,
-                               **compact_times(dev, spy.spikes)},
+                               **compact_times(dev, spy)},
              "fixpoint_pair": {"tiers": fix_tiers, "paths": fix_paths,
                                **dedup_extra["fixpoint_pair"]}}
     return kernel_entries(times, launches, errs, per_kernel, extra)
@@ -2079,10 +2235,11 @@ def dom_bound(n: int, out_n: int, words: int, rounds_work, survivors: int):
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
-def dom_headline(dev, model, h, pair: bool, rechecks: bool):
+def dom_headline(dev, model, h, pair: bool, rechecks: bool, spies=()):
     """Phases 16 / 17: a crash-dom headline through
     ``checker.linearizable(algorithm="gpu")`` with the launch counts set to
-    0 just before and read just after; then (``rechecks``) a clean device
+    0 just before and read just after, and ``spies`` (context managers)
+    installed; then (``rechecks``) a clean device
     check, and one more with each dominance dedup call timed behind the
     spin gate. Returns (result, launches, summed kernel ms of the gated
     check, clean device check seconds (None without ``rechecks``), end
@@ -2097,11 +2254,14 @@ def dom_headline(dev, model, h, pair: bool, rechecks: bool):
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
-    reset_launches()
-    t0 = time.perf_counter()
-    r = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
-                                                                h)
-    t_e2e = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        for spy in spies:
+            stack.enter_context(spy)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = checker.linearizable(algorithm="gpu", device=dev).check(
+            None, model, h)
+        t_e2e = time.perf_counter() - t0
     launches = {k: v for k, v in psort.LAUNCHES.items() if v}
     n = len(h) // 2
     log(f"[{tag}-headline] ops={n} window={p.window} R={p.R} crashed="
@@ -2300,11 +2460,12 @@ def dom_gate_worst(dev, pair: bool) -> dict:
     return out
 
 
-def crashdom_phases(dev) -> list:
+def crashdom_phases(dev) -> tuple:
     """Phases 15-19, the crash-dom bands. Returns the kernels line's
-    entries of the two dominance dedups."""
+    entries of the two dominance dedups, and the single-key crash-dom
+    headline's compact_keys calls by path."""
     from jepsen_tpu_torch import models as m
-    from jepsen_tpu_torch.lin import bfs, prepare, synth
+    from jepsen_tpu_torch.lin import bfs, prepare, psort, synth
 
     model = m.cas_register()
     hists, engines = {}, {}
@@ -2330,10 +2491,15 @@ def crashdom_phases(dev) -> list:
     results = {}
     # 16, 17. the headlines through the user's entry point; the pair
     # headline's per-call timing is left to phase 19 (a gated check would
-    # add two minutes).
+    # add two minutes). The single-key one counts compact_keys's calls by
+    # route, path and size.
+    spy = CompactSpy(4)
     for pair in (False, True):
         results[pair] = dom_headline(dev, model, hists[pair], pair,
-                                     rechecks=not pair)
+                                     rechecks=not pair,
+                                     spies=() if pair else (spy,))
+    compact_paths = spy.check_ordered("single-dom-headline",
+                                      psort.COMPACT_ONE_MAX_N)
     # 18. the host-row executor
     hostrow_phase(dev, model)
     # 19. per-call times at every in-chunk tier
@@ -2361,7 +2527,7 @@ def crashdom_phases(dev) -> list:
             "bit_exact": True, "shape": shape, "headline_ms": per_call,
             "headline_check_s": t_dev, "headline_e2e_s": t_e2e,
             "sizes": list(DOM_SIZES + DOM_BIG), **extra})
-    return entries
+    return entries, compact_paths
 
 
 def main(device: str = "cuda") -> int:
@@ -2575,7 +2741,10 @@ def main(device: str = "cuda") -> int:
         len(chunk_bound), "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
     kernels += sparse_phases(dev)
     kernels += pair_phases(dev)
-    kernels += crashdom_phases(dev)
+    dom_entries, dom_compact_paths = crashdom_phases(dev)
+    kernels += dom_entries
+    next(k for k in kernels if k["name"] == "compact_keys")[
+        "crashdom_headline_paths"] = dom_compact_paths
     return finish(kernels, smi, kind)
 
 

@@ -64,34 +64,37 @@
 // engine's sizes (the bytes, the live keys read and written once per
 // digit pass, take microseconds at 3.35 TB/s at n = 2^21 pairs).
 //
-// compact_keys sorts by a bitonic network over n_pad keys, and so does
-// compact_keys2 past its one-launch gate (psort.COMPACT2_ONE_MAX_N, set
-// on the card). Strides below a tile of 32 KiB (8192 single keys, 4096
-// pairs) run inside one block in shared memory, many stages per launch;
-// larger strides are one launch each of global-memory compare-exchanges,
-// one pair per thread across the whole card (n_pad up to 2^19 keys,
-// resident in the 50 MB L2). The network's output is the sorted array
-// whatever its stage order, so the result equals the TPU kernel's bit for
-// bit. count stays on the device. At n_pad = 2^19 the single-key sort is 1
-// tile launch + 21 global stages + 6 tile merges (pairs: 1 + 28 + 7), each
+// Both compactions run in one launch up to their gates
+// (psort.COMPACT_ONE_MAX_N, psort.COMPACT2_ONE_MAX_N, both set on the
+// card) and sort by a bitonic network over n_pad keys above them. The
+// network's strides below a tile of 32 KiB (8192 single keys, 4096 pairs)
+// run inside one block in shared memory, many stages per launch; larger
+// strides are one launch each of global-memory compare-exchanges, one
+// pair per thread across the whole card (n_pad up to 2^19 keys, resident
+// in the 50 MB L2). The network's output is the sorted array whatever its
+// stage order, so the result equals the TPU kernel's bit for bit. count
+// stays on the device. At n_pad = 2^19 the single-key sort is 1 tile
+// launch + 21 global stages + 6 tile merges (pairs: 1 + 28 + 7), each
 // moving the array through L2: launches and L2 traffic bound it.
 //
-// compact_keys2 in one launch (a template on the key type, instantiated
-// for pairs). The engine's return filter clears one bit that every
-// survivor holds, from a frontier that is ascending, so its live keys
-// (those other than the fill key) arrive ascending with fill holes, and
-// an order-keeping compaction is the sorted result. One block of 1024
-// threads sweeps the keys once, each warp over a contiguous range, eight
-// keys a lane in flight: it counts the live keys per warp by ballots,
-// takes their OR and AND, and notes whether any live key is smaller than
-// the live key before it (within a warp by a shuffle from the previous
-// live lane, across warps by a scan of the warps' first and last keys).
-// A scan of the warps' counts gives each warp its offset. With no descent
-// a second sweep writes the first cap live keys to out in order (a warp
-// whose offset is past cap skips it) and the fill key after them. With a
+// The compaction in one launch, compact_one_kernel<K>: one template on the
+// key type, instantiated for single keys (uint32_t) and pairs (uint64_t).
+// The engine's return filters clear one bit that every survivor holds,
+// from a frontier that is ascending, so their live keys (those other than
+// the fill key) arrive ascending with fill holes, and an order-keeping
+// compaction is the sorted result. One block of 1024 threads sweeps the
+// keys once, each warp over a contiguous range, eight keys a lane in
+// flight: it counts the live keys per warp by ballots, takes their OR and
+// AND, and notes whether any live key is smaller (unsigned) than the live
+// key before it (within a warp by a shuffle from the previous live lane,
+// across warps by a scan of the warps' first and last keys). A scan of the
+// warps' counts gives each warp its offset. With no descent a second
+// sweep writes the first cap live keys to out in order (a warp whose
+// offset is past cap skips it) and the fill key after them. With a
 // descent it places the live keys in order into a buffer and sorts them
 // with the dominance dedup's block-local LSD radix sort over their
-// varying bits (below): in shared memory up to 12,288 pairs, else in a
+// varying 8-bit windows (below; at most 4 for single keys, 8 for pairs):
+// in shared memory up to 24,576 single keys or 12,288 pairs, else in a
 // device-memory scratch of 2 n keys that the wrapper sizes from n. The
 // path (ordered, sorted in shared memory, sorted in device memory) is
 // chosen inside the launch and written beside the count. Bound on the
@@ -1087,6 +1090,7 @@ struct Bits {
 };
 __device__ __forceinline__ Bits bits_of(const U128& v) { return {v.hi, v.lo}; }
 __device__ __forceinline__ Bits bits_of(uint64_t v) { return {0, v}; }
+__device__ __forceinline__ Bits bits_of(uint32_t v) { return {0, v}; }
 __device__ __forceinline__ bool operator<(const U128& a, const U128& b) {
   return b > a;
 }
@@ -1479,17 +1483,25 @@ constexpr int kCompactOneMaxN = 1 << 21;
 // kOnePathShared and kOnePathDevice for a sort).
 constexpr int kOnePathOrdered = 4;
 
-// A key of lane `src` (of the lane d below, for shfl_up_key), through
-// the 64-bit shuffle.
+// A key of lane `src` (of the lane d below, for shfl_up_key): one 32-bit
+// shuffle for single keys, the 64-bit shuffle (two) for pairs.
 template <typename K>
 __device__ __forceinline__ K shfl_key(K v, int src) {
-  return static_cast<K>(
-      __shfl_sync(kFullMask, static_cast<unsigned long long>(v), src));
+  if constexpr (sizeof(K) == 4) {
+    return __shfl_sync(kFullMask, v, src);
+  } else {
+    return static_cast<K>(
+        __shfl_sync(kFullMask, static_cast<unsigned long long>(v), src));
+  }
 }
 template <typename K>
 __device__ __forceinline__ K shfl_up_key(K v, int d) {
-  return static_cast<K>(
-      __shfl_up_sync(kFullMask, static_cast<unsigned long long>(v), d));
+  if constexpr (sizeof(K) == 4) {
+    return __shfl_up_sync(kFullMask, v, d);
+  } else {
+    return static_cast<K>(
+        __shfl_up_sync(kFullMask, static_cast<unsigned long long>(v), d));
+  }
 }
 
 // The largest of the keys of lanes at or below this one.
@@ -1836,13 +1848,27 @@ int psort_dedup_launch(const void* key, const void* valid, int n, int cap,
                                 nullptr, out, flags, stream);
 }
 
-// Device pointers: keys u32[n], work u32[n_pad], out u32[cap],
-// count i32[1].
+// The bitonic network. Device pointers: keys u32[n], work u32[n_pad],
+// out u32[cap], count i32[1].
 int psort_compact_launch(const void* keys, int n, int n_pad, int cap,
                          void* work, void* out, void* count, void* stream) {
   return compact_launch<uint32_t>(nullptr, keys, n, n_pad, cap, work, nullptr,
                                   out, count, stream);
 }
+
+// In one launch (n up to 2^21, cap any). Device pointers: keys u32[n],
+// scratch u32[2 n] when n exceeds psort_compact_one_shared_max_n(), else
+// unused and may be null, out u32[cap], words i32[2] = {min(live, cap),
+// path} (as psort_compact2_one_launch's).
+int psort_compact_one_launch(const void* keys, int n, int cap,
+                             void* scratch, void* out, void* words,
+                             void* stream) {
+  return compact_one_launch<uint32_t>(nullptr, keys, n, cap, scratch,
+                                      nullptr, out, words, stream);
+}
+
+// Live keys the one-launch compaction sorts in shared memory.
+int psort_compact_one_shared_max_n() { return OneOf<uint32_t>::kSharedN; }
 
 // Pairs. Device pointers: hi, lo u32[n], valid u8[n], work u64[2 n],
 // scratch i32[psort_dedup_scratch_words(n, 8)], out_hi, out_lo u32[cap],

@@ -92,8 +92,20 @@ DOM1_ONE_MAX_N = 1 << 18
 # which the engine does not send, it loses at every size; past
 # PSORT_MAX_N the engine's torch.sort beats it too.
 COMPACT2_ONE_MAX_N = 1 << 17
-# The one-launch compaction's limit (kCompactOneMaxN in psort.cu).
-COMPACT2_ONE_LIMIT = 1 << 21
+# The single-key compaction's twin gate, set on the H100 the same way
+# (chip_smoke.py phase 10: both routes at every size of its
+# COMPACT_SIZES on ascending-with-holes and arbitrary input, and at every
+# size the sparse headline compacts at, on its own recorded inputs). On
+# the engine's input one block wins up to 2^18 (0.1129 ms against the
+# network's 0.1416 at 2^18, 0.0051 against 0.0138 at 2^10), a size
+# further than the pairs as 4-byte keys halve its traffic, and loses
+# from 2^19 (0.2220 against 0.1728); on arbitrary input, which the
+# engine does not send, it loses at every size (0.0186 against 0.0136
+# at 2^10, 4.3464 against 0.1734 at 2^19).
+COMPACT_ONE_MAX_N = 1 << 18
+# The one-launch compaction's limit at both key widths (kCompactOneMaxN
+# in psort.cu).
+COMPACT_ONE_LIMIT = 1 << 21
 
 # Kernel launches since import (or since a caller reset them): one per
 # launch of each CUDA kernel, none for the plain versions.
@@ -200,16 +212,31 @@ def compact_keys(keys: torch.Tensor, cap: int):
     """Pack the non-KEY_FILL entries of ``keys`` (raw int32[n]) into an
     ascending prefix. Returns (keys int32[cap], count int32 = min(number
     of non-FILL keys, cap)) on the keys' device. No dedup: the return
-    filter's survivors are distinct by construction."""
+    filter's survivors are distinct by construction. On the card it runs
+    in one launch up to :data:`COMPACT_ONE_MAX_N` (which keeps the
+    input's order when its live keys arrive ascending, and sorts them
+    otherwise), and on the bitonic network above."""
     _check(keys, cap, "compact_keys")
     if keys.device.type == "cpu":
         return compact_keys_plain(keys, cap)
-    _kernel_args(keys, "compact_keys", PSORT_MAX_N)
+    one = compact_one_launch(keys.numel())
+    _kernel_args(keys, "compact_keys", COMPACT_ONE_LIMIT if one
+                 else PSORT_MAX_N)
     from jepsen_tpu_torch.lin import psort_cuda
 
-    out, count = psort_cuda.compact(keys, cap, pad_size(keys.numel()))
+    if one:
+        out, count = psort_cuda.compact_one(keys, cap)
+    else:
+        out, count = psort_cuda.compact(keys, cap, pad_size(keys.numel()))
     LAUNCHES["compact_keys"] += 1
     return out, count[0]
+
+
+def compact_one_launch(n: int) -> bool:
+    """Route of an n-key compaction on the card: one launch while its
+    padded size is at most :data:`COMPACT_ONE_MAX_N`, else the bitonic
+    network."""
+    return pad_size(n) <= COMPACT_ONE_MAX_N
 
 
 def compact_keys_plain(keys: torch.Tensor, cap: int):
@@ -302,7 +329,7 @@ def compact_keys2(hi: torch.Tensor, lo: torch.Tensor, cap: int):
         return compact_keys2_plain(hi, lo, cap)
     one = compact2_one_launch(lo.numel())
     _pair_kernel_args(hi, lo, "compact_keys2",
-                      COMPACT2_ONE_LIMIT if one else PSORT_MAX_N)
+                      COMPACT_ONE_LIMIT if one else PSORT_MAX_N)
     from jepsen_tpu_torch.lin import psort_cuda
 
     if one:

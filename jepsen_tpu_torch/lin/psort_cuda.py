@@ -14,8 +14,9 @@ Keys are raw int32 tensors read as ``uint32_t``
 by the library itself (``psort_dedup_scratch_words``). Each dominance
 dedup has two routes, which its wrapper chooses from n_pad: one launch
 (:func:`dedup_dom_one`, :func:`dedup2_dom_one`) or the multi-launch chain
-(:func:`dedup_dom`, :func:`dedup2_dom`); so has the pair compaction: one
-launch (:func:`compact2_one`) or the bitonic network (:func:`compact2`).
+(:func:`dedup_dom`, :func:`dedup2_dom`); so has each compaction: one
+launch (:func:`compact_one`, :func:`compact2_one`) or the bitonic network
+(:func:`compact`, :func:`compact2`).
 """
 
 from __future__ import annotations
@@ -33,12 +34,13 @@ _lib = None
 PATH_SHARED, PATH_DEVICE, PATH_ORDERED = 1, 2, 4
 # The route of the latest dominance dedup of either band ("one" or
 # "multi") and, for "one", its path word (int32[1] on the card), for
-# checks that every path ran; the same for the latest pair compaction
-# ("one" or "bitonic").
+# checks that every path ran; the same for the latest compaction of each
+# key width in bytes ("one" or "bitonic"; 4: compact_keys, 8:
+# compact_keys2).
 last_dom_route = None
 last_dom_path = None
-last_compact_route = None
-last_compact_path = None
+last_compact_route = {4: None, 8: None}
+last_compact_path = {4: None, 8: None}
 
 
 def _load():
@@ -59,8 +61,12 @@ def _load():
         lib.psort_dedup2_launch.restype = i
         lib.psort_compact2_launch.argtypes = [p, p, i, i, i, p, p, p, p, p]
         lib.psort_compact2_launch.restype = i
+        lib.psort_compact_one_launch.argtypes = [p, i, i, p, p, p, p]
+        lib.psort_compact_one_launch.restype = i
         lib.psort_compact2_one_launch.argtypes = [p, p, i, i, p, p, p, p, p]
         lib.psort_compact2_one_launch.restype = i
+        lib.psort_compact_one_shared_max_n.argtypes = []
+        lib.psort_compact_one_shared_max_n.restype = i
         lib.psort_compact2_one_shared_max_n.argtypes = []
         lib.psort_compact2_one_shared_max_n.restype = i
         u = ctypes.c_uint32
@@ -131,21 +137,35 @@ def dedup(key: torch.Tensor, valid: torch.Tensor, cap: int):
     return out, flags
 
 
-def compact(keys: torch.Tensor, cap: int, n_pad: int):
-    """Launch the compaction sort. Returns (keys int32[cap], count
-    int32[1]) on the keys' device."""
+def _compact_bitonic(words_in, cap: int, n_pad: int):
+    """Launch the bitonic compaction of ``words_in``: (keys,) for single
+    keys, (hi, lo) for pairs. Returns the outputs int32[cap], one per
+    input word, and count int32[1] on the keys' device."""
     lib = _load()
-    n = keys.numel()
-    dev = keys.device
-    work = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    width = 4 * len(words_in)
+    lo = words_in[-1]
+    n = lo.numel()
+    dev = lo.device
+    work = torch.empty(n_pad, dtype=torch.int32 if width == 4
+                       else torch.int64, device=dev)
+    outs = [torch.empty(cap, dtype=torch.int32, device=dev)
+            for _ in words_in]
     count = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = lib.psort_compact_launch if width == 4 else lib.psort_compact2_launch
     with torch.cuda.device(dev):
-        rc = lib.psort_compact_launch(
-            keys.data_ptr(), n, n_pad, cap, work.data_ptr(),
-            out.data_ptr(), count.data_ptr(), _stream(keys))
-    _raise_on(rc, "psort compact_keys", n=n, n_pad=n_pad, cap=cap)
-    return out, count
+        rc = fn(*(w.data_ptr() for w in words_in), n, n_pad, cap,
+                work.data_ptr(), *(o.data_ptr() for o in outs),
+                count.data_ptr(), _stream(lo))
+    _raise_on(rc, "psort compact_keys" + ("" if width == 4 else "2"), n=n,
+              n_pad=n_pad, cap=cap)
+    last_compact_route[width], last_compact_path[width] = "bitonic", None
+    return (*outs, count)
+
+
+def compact(keys: torch.Tensor, cap: int, n_pad: int):
+    """Launch the compaction's bitonic sort. Returns (keys int32[cap],
+    count int32[1]) on the keys' device."""
+    return _compact_bitonic((keys,), cap, n_pad)
 
 
 def dedup2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
@@ -171,61 +191,65 @@ def dedup2(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,
 def compact2(hi: torch.Tensor, lo: torch.Tensor, cap: int, n_pad: int):
     """Launch the pair compaction's bitonic sort. Returns (hi int32[cap],
     lo int32[cap], count int32[1]) on the keys' device."""
-    global last_compact_route, last_compact_path
+    return _compact_bitonic((hi, lo), cap, n_pad)
+
+
+def compact_shared_max_n(width: int) -> int:
+    """Live keys of ``width`` bytes (4: single keys, 8: pairs) that the
+    one-launch compaction sorts in shared memory when they are out of
+    order; a call with more sorts in its device-memory scratch."""
     lib = _load()
-    n = lo.numel()
-    dev = lo.device
-    work = torch.empty(n_pad, dtype=torch.int64, device=dev)
-    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
-    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.psort_compact2_launch(
-            hi.data_ptr(), lo.data_ptr(), n, n_pad, cap, work.data_ptr(),
-            out_hi.data_ptr(), out_lo.data_ptr(), count.data_ptr(),
-            _stream(lo))
-    _raise_on(rc, "psort compact_keys2", n=n, n_pad=n_pad, cap=cap)
-    last_compact_route, last_compact_path = "bitonic", None
-    return out_hi, out_lo, count
+    return int(lib.psort_compact_one_shared_max_n() if width == 4
+               else lib.psort_compact2_one_shared_max_n())
 
 
-def compact2_shared_max_n() -> int:
-    """Live pairs the one-launch compaction sorts in shared memory when
-    they are out of order; a call with more sorts in its device-memory
-    scratch."""
-    return int(_load().psort_compact2_one_shared_max_n())
-
-
-def compact2_one_scratch_words(n: int, shared_n: int) -> int:
-    """int64 words of the one-launch compaction's device scratch for n
-    pairs: two buffers of n pairs where n exceeds ``shared_n``
-    (:func:`compact2_shared_max_n`: the live pairs may not fit in shared
+def compact_one_scratch_words(n: int, shared_n: int) -> int:
+    """Words of the one-launch compaction's device scratch for n keys, of
+    the keys' own width (int32 for single keys, int64 for pairs): two
+    buffers of n keys where n exceeds ``shared_n``
+    (:func:`compact_shared_max_n`: the live keys may not fit in shared
     memory), else one unused word."""
     return 1 if n <= shared_n else 2 * n
 
 
-def compact2_one(hi: torch.Tensor, lo: torch.Tensor, cap: int):
-    """Launch the pair compaction in one launch: in order when the live
-    pairs arrive ascending, else sorted. Returns (hi int32[cap], lo
-    int32[cap], count int32[1]) on the keys' device and sets
-    :data:`last_compact_path`."""
-    global last_compact_route, last_compact_path
+def _compact_one(words_in, cap: int):
+    """Launch the compaction of ``words_in`` ((keys,) or (hi, lo)) in one
+    launch: in order when the live keys arrive ascending, else sorted.
+    Returns the outputs int32[cap], one per input word, and count
+    int32[1] on the keys' device, and sets :data:`last_compact_path`."""
     lib = _load()
+    width = 4 * len(words_in)
+    lo = words_in[-1]
     n = lo.numel()
     dev = lo.device
-    scratch = torch.empty(compact2_one_scratch_words(
-        n, compact2_shared_max_n()), dtype=torch.int64, device=dev)
-    out_hi = torch.empty(cap, dtype=torch.int32, device=dev)
-    out_lo = torch.empty(cap, dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        compact_one_scratch_words(n, compact_shared_max_n(width)),
+        dtype=torch.int32 if width == 4 else torch.int64, device=dev)
+    outs = [torch.empty(cap, dtype=torch.int32, device=dev)
+            for _ in words_in]
     words = torch.empty(2, dtype=torch.int32, device=dev)
+    fn = lib.psort_compact_one_launch if width == 4 \
+        else lib.psort_compact2_one_launch
     with torch.cuda.device(dev):
-        rc = lib.psort_compact2_one_launch(
-            hi.data_ptr(), lo.data_ptr(), n, cap, scratch.data_ptr(),
-            out_hi.data_ptr(), out_lo.data_ptr(), words.data_ptr(),
-            _stream(lo))
-    _raise_on(rc, "psort compact_keys2 (one launch)", n=n, cap=cap)
-    last_compact_route, last_compact_path = "one", words[1:]
-    return out_hi, out_lo, words[:1]
+        rc = fn(*(w.data_ptr() for w in words_in), n, cap,
+                scratch.data_ptr(), *(o.data_ptr() for o in outs),
+                words.data_ptr(), _stream(lo))
+    _raise_on(rc, "psort compact_keys" + ("" if width == 4 else "2")
+              + " (one launch)", n=n, cap=cap)
+    last_compact_route[width], last_compact_path[width] = "one", words[1:]
+    return (*outs, words[:1])
+
+
+def compact_one(keys: torch.Tensor, cap: int):
+    """Launch the compaction in one launch. Returns (keys int32[cap],
+    count int32[1]) on the keys' device."""
+    return _compact_one((keys,), cap)
+
+
+def compact2_one(hi: torch.Tensor, lo: torch.Tensor, cap: int):
+    """Launch the pair compaction in one launch. Returns (hi int32[cap],
+    lo int32[cap], count int32[1]) on the keys' device."""
+    return _compact_one((hi, lo), cap)
 
 
 def dom_kernel_launches() -> int:

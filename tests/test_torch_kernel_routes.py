@@ -1,18 +1,18 @@
 """The host side of the dense kernel's, the dominance dedups' and the
-pair compaction's routes, which the CPU can check without the card:
-which kernel a chunk width takes and what shared memory it asks for,
-each dominance dedup's choice between its one-launch and multi-launch
-paths by padded size, the pair compaction's between its one launch and
-the bitonic network, each path's scratch sizing, the launchers' limits,
-and that a tensor on a device without a kernel raises instead of falling
+compactions' routes, which the CPU can check without the card: which
+kernel a chunk width takes and what shared memory it asks for, each
+dominance dedup's choice between its one-launch and multi-launch paths
+by padded size, each compaction's between its one launch and the
+bitonic network, each path's scratch sizing, the launchers' limits, and
+that a tensor on a device without a kernel raises instead of falling
 back. The inputs ``chip_smoke.py`` adds for the one-launch paths (one
 group dominated only at distance 128, every entry equal, valid counts
-around the shared capacity; the compaction's ascending, descending and
-hi-KEY_FILL cases) are held against the reference's lax dominance dedup
-and its interpret-mode Pallas compaction here, bit for bit (tolerance 0:
-the keys are integers). Last, the property the one-launch compaction's
-speed rests on: the sparse engine hands it live pairs in ascending
-order."""
+around the shared capacity; the compactions' ascending, descending,
+bit-31, all-fill and hi-KEY_FILL cases) are held against the
+reference's lax dominance dedup and its interpret-mode Pallas
+compactions here, bit for bit (tolerance 0: the keys are integers).
+Last, the property the one-launch compactions' speed rests on: the
+sparse engine hands them live keys and pairs in ascending order."""
 
 import functools
 import sys
@@ -381,63 +381,167 @@ def test_card_inputs_of_the_single_key_dedup_match_the_reference(label):
         assert psort.dom_one_launch(key.size, pair=False)
 
 
-# --- the pair compaction's routes --------------------------------------------
+# --- the compactions' routes ------------------------------------------------
+
+# Live 4-byte keys the one-launch compaction sorts in shared memory
+# (psort_compact_one_shared_max_n(): two 96 KiB buffers); pairs take
+# SHARED_SINGLE.
+SHARED_COMPACT = 24_576
+
+
+def _compact_routes(monkeypatch, width, n, route):
+    """The compaction of ``width``-byte keys (4: ``compact_keys``, 8:
+    ``compact_keys2``) sends each call to one launcher by n_pad (the one
+    launch up to its gate, the bitonic network above, up to PSORT_MAX_N),
+    checks the size against that launcher's limit, and counts one launch
+    a call."""
+    calls, limits = [], []
+    count = torch.zeros(1, dtype=torch.int32)
+
+    def one(*args):
+        calls.append(("one", args[-1]))
+        return (None,) * (len(args) - 1) + (count,)
+
+    def bitonic(*args):
+        calls.append(("bitonic", *args[-2:]))
+        return (None,) * (len(args) - 2) + (count,)
+
+    suffix = "" if width == 4 else "2"
+    if width == 4:
+        monkeypatch.setattr(psort, "_kernel_args",
+                            lambda keys, what, max_n: limits.append(max_n))
+    else:
+        monkeypatch.setattr(psort, "_pair_kernel_args",
+                            lambda hi, lo, what, max_n: limits.append(max_n))
+    monkeypatch.setattr(psort_cuda, f"compact{suffix}_one", one)
+    monkeypatch.setattr(psort_cuda, f"compact{suffix}", bitonic)
+    name = f"compact_keys{suffix}"
+    before = psort.LAUNCHES[name]
+    getattr(psort, name)(*_meta_words(n)[:width // 4], 256)
+    assert psort.LAUNCHES[name] == before + 1
+    gate = psort.compact_one_launch if width == 4 \
+        else psort.compact2_one_launch
+    assert gate(n) == (route == "one")
+    if route == "one":
+        assert calls == [("one", 256)]
+        assert limits == [psort.COMPACT_ONE_LIMIT]
+    else:
+        assert calls == [("bitonic", 256, psort.pad_size(n))]
+        assert limits == [psort.PSORT_MAX_N]
+
+
+@pytest.mark.parametrize("n,route", [(1024, "one"), (1500, "one"),
+                                     (16_384, "one"), (1 << 17, "one"),
+                                     (1 << 18, "one"),
+                                     ((1 << 18) + 1, "bitonic"),
+                                     (1 << 19, "bitonic")])
+def test_compact_wrapper_routes_by_padded_size(monkeypatch, n, route):
+    _compact_routes(monkeypatch, 4, n, route)
+
 
 @pytest.mark.parametrize("n,route", [(1024, "one"), (1500, "one"),
                                      (16_384, "one"), (1 << 17, "one"),
                                      ((1 << 17) + 1, "bitonic"),
                                      (1 << 19, "bitonic")])
 def test_compact2_wrapper_routes_by_padded_size(monkeypatch, n, route):
-    """``compact_keys2`` sends each call to one launcher by n_pad (the
-    one launch up to COMPACT2_ONE_MAX_N, the bitonic network above, up
-    to PSORT_MAX_N), checks the size against that launcher's limit, and
-    counts one launch a call."""
-    calls, limits = [], []
+    _compact_routes(monkeypatch, 8, n, route)
 
-    def one(hi, lo, cap):
-        calls.append(("one", cap))
-        return None, None, torch.zeros(1, dtype=torch.int32)
 
-    def bitonic(hi, lo, cap, n_pad):
-        calls.append(("bitonic", cap, n_pad))
-        return None, None, torch.zeros(1, dtype=torch.int32)
+def _gate_inside_limits(g, launch):
+    assert g & (g - 1) == 0 and psort.MIN_N <= g <= psort.PSORT_MAX_N
+    assert g <= psort.COMPACT_ONE_LIMIT
+    assert launch(g) and not launch(g + 1)
 
-    monkeypatch.setattr(psort, "_pair_kernel_args",
-                        lambda hi, lo, what, max_n: limits.append(max_n))
-    monkeypatch.setattr(psort_cuda, "compact2_one", one)
-    monkeypatch.setattr(psort_cuda, "compact2", bitonic)
-    before = psort.LAUNCHES["compact_keys2"]
-    words = _meta_words(n)
-    psort.compact_keys2(words[0], words[1], 256)
-    assert psort.LAUNCHES["compact_keys2"] == before + 1
-    assert psort.compact2_one_launch(n) == (route == "one")
-    if route == "one":
-        assert calls == [("one", 256)]
-        assert limits == [psort.COMPACT2_ONE_LIMIT]
-    else:
-        assert calls == [("bitonic", 256, psort.pad_size(n))]
-        assert limits == [psort.PSORT_MAX_N]
+
+def test_compact_gate_sits_inside_both_launchers_limits():
+    _gate_inside_limits(psort.COMPACT_ONE_MAX_N, psort.compact_one_launch)
 
 
 def test_compact2_gate_sits_inside_both_launchers_limits():
-    g = psort.COMPACT2_ONE_MAX_N
-    assert g & (g - 1) == 0 and psort.MIN_N <= g <= psort.PSORT_MAX_N
-    assert g <= psort.COMPACT2_ONE_LIMIT
-    assert psort.compact2_one_launch(g) and not psort.compact2_one_launch(
-        g + 1)
+    _gate_inside_limits(psort.COMPACT2_ONE_MAX_N, psort.compact2_one_launch)
+
+
+@pytest.mark.parametrize("cap", tbfs.ROW_TIERS
+                         + tbfs.PACKED_CAP_SCHEDULE[-1:])
+def test_compact_route_of_each_in_chunk_cap(cap):
+    """The single-key return filter compacts cap keys at every row tier
+    and chunk cap up to 131,072 (n_pad 1,024 ... 131,072 on the sparse
+    headline): each takes the one launch."""
+    assert psort.compact_one_launch(cap)
+
+
+def _scratch_of_each_path(width, shared, n):
+    """Two buffers of n keys of the keys' own width past the live keys
+    shared memory holds (192 KiB over two buffers of width-byte keys),
+    else one unused word."""
+    assert shared == 192 * 1024 // 2 // width
+    words = psort_cuda.compact_one_scratch_words(n, shared)
+    assert words == (1 if n <= shared else 2 * n)
+
+
+@pytest.mark.parametrize("n", [1, 1024, SHARED_COMPACT, SHARED_COMPACT + 1,
+                               1 << 18])
+def test_compact_scratch_of_each_path(n):
+    _scratch_of_each_path(4, SHARED_COMPACT, n)
 
 
 @pytest.mark.parametrize("n", [1, 1024, SHARED_SINGLE, SHARED_SINGLE + 1,
                                1 << 17])
 def test_compact2_scratch_of_each_path(n):
-    words = psort_cuda.compact2_one_scratch_words(n, SHARED_SINGLE)
-    assert words == (1 if n <= SHARED_SINGLE else 2 * n)
+    _scratch_of_each_path(8, SHARED_SINGLE, n)
+
+
+@pytest.mark.parametrize("n", [1024, 1 << 19])
+def test_compact_wrapper_raises_without_a_kernel(n):
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        psort.compact_keys(_meta_words(n)[0], 256)
 
 
 def test_compact2_wrapper_raises_without_a_kernel():
     words = _meta_words(1024)
     with pytest.raises(ValueError, match="cuda or cpu"):
         psort.compact_keys2(words[0], words[1], 256)
+
+
+@pytest.fixture(scope="module")
+def compact_cases():
+    """The single-key one-launch compaction's card inputs at n = 1024
+    with the reference's interpret-mode Pallas ``compact_keys`` outputs."""
+    rng = np.random.default_rng(85)
+    out = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JEPSEN_TPU_PSORT", "interpret")
+        for label, keys, cap in chip_smoke.compact_cases(rng, 1024):
+            ref = jpsort.compact_keys(jnp.asarray(keys), cap)
+            out.append((label, keys, cap, tuple(np.asarray(x) for x in ref)))
+    return out
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_compact_card_inputs_match_pallas(compact_cases, which):
+    label, keys, cap, (rk, rc) = compact_cases[which]
+    live = keys != FILL
+    lk = keys[live]
+    down = np.flatnonzero(lk[1:] < lk[:-1])            # unsigned order
+    high = lk >= np.uint32(1 << 31)
+    if which == 0:
+        assert down.size == 0 and live.sum() > cap
+    elif which == 1:
+        assert down.tolist() == [lk.size - 2]
+    elif which == 2:
+        assert down.size == 0 and high.any() and not high.all()
+    elif which == 3:
+        assert down.size == 1 and high[down[0]] and not high[down[0] + 1]
+    else:
+        assert not live.any()
+    args = (_u32.bitmap_from_numpy(keys, "cpu"), cap)
+    tk, tc = psort.compact_keys_plain(*args)
+    assert np.array_equal(_u32.bitmap_to_numpy(tk), rk.astype(np.uint32))
+    assert int(tc) == int(rc) == min(int(live.sum()), cap)
+    before = dict(psort.LAUNCHES)
+    wrapped = psort.compact_keys(*args)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, (tk, tc)))
+    assert psort.LAUNCHES == before            # plain on the CPU
 
 
 @pytest.fixture(scope="module")
@@ -507,3 +611,29 @@ def test_engine_hands_the_pair_compaction_ascending_live_pairs(monkeypatch):
         assert bool((live[1:] > live[:-1]).all())
         holes += int(live.numel() < k.numel())
     assert holes == len(seen)
+
+
+def test_engine_hands_the_compaction_ascending_live_keys(monkeypatch):
+    """The single-key twin: the return filter (``bfs._filter_pass_keys``)
+    of a window-22 history hands ``compact_keys`` live keys ascending in
+    input order (unsigned), with KEY_FILL holes."""
+    h = tsynth.generate_register_history(200, concurrency=24, seed=3,
+                                         value_range=5)
+    p = prepare.prepare(tm.cas_register(), h)
+    assert tbfs.band_error(p) is None and p.window <= 23
+    assert not tbfs._Engine(p, "cpu").pair
+    seen = []
+    compact = psort.compact_keys
+
+    def spy(keys, cap):
+        seen.append(_u32.widen(keys))
+        return compact(keys, cap)
+
+    monkeypatch.setattr(psort, "compact_keys", spy)
+    r = tbfs.check_packed(p, device="cpu")
+    assert r["valid?"] is True
+    assert len(seen) == r["engine-stats"]["compactions"] > 0
+    for k in seen:
+        live = k[k != FILL]
+        assert bool((live[1:] > live[:-1]).all())
+        assert live.numel() < k.numel()
