@@ -133,7 +133,23 @@ raises on a failure:
     version's and its bound, every candidate valid through both routes,
     and both routes on random keys at the gate (the measurements behind
     ``psort.DOM1_ONE_MAX_N`` and ``psort.DOM_ONE_MAX_N``), with its
-    launches per call.
+    launches per call;
+20. independent keys (``[batch-*]``): etcd's per-key register workload
+    (1,000 keys x 300 ops, concurrency 10, four keys corrupted) and
+    BASELINE config 4's shape (1,000 keys x 100 ops) wrapped in ``KV``
+    into one history each and checked through
+    ``independent.checker(checker.linearizable(algorithm="gpu"))``:
+    every key by ``gpu-dense-batch`` (one launch of the dense kernel
+    over a grid of keys, ``dense_chunk_batch``), the failures the CPU
+    oracle's, each key's verdict, dead row and op the per-key
+    ``checker.linearizable`` check's, every key's bitmap and state row
+    the single-key kernel's, the kernel against its plain version on 8
+    keys; the batch's time with and without packing beside the per-key
+    loop's and the kernel's beside its bound. Then a group that leaves
+    the dense bounds (64 keys x 100 ops, the window-24 CAS-chain key and
+    2 corrupted keys) through the multiword sparse batch
+    (``gpu-bfs-batch``): verdicts and dead rows the CPU oracle's, final
+    frontiers the CPU run's, bit for bit.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2530,6 +2546,396 @@ def crashdom_phases(dev) -> tuple:
     return entries, compact_paths
 
 
+# --- independent keys (phase 20) ---------------------------------------------
+
+# etcd's per-key register workload (jepsen_tpu/suites/workloads.py:56-74:
+# 300 ops a key, 10 threads a key) and BASELINE config 4's probe
+# (bench.py:357-374), each key's history from its own seed.
+BATCH_ETCD = dict(n_keys=1000, seed0=2000, n_ops=300, concurrency=10,
+                  value_range=5, crash_prob=0.002, max_crashes=2)
+BATCH_ETCD_CORRUPT = (0, 250, 500, 750)
+BATCH_CONFIG4 = dict(n_keys=1000, seed0=1000, n_ops=100, concurrency=5,
+                     value_range=5, crash_prob=0.002, max_crashes=2)
+# The sparse group: crash-free keys, the window-24 CAS chain of
+# tests/test_independent.py:236-242 and two corrupted keys.
+BATCH_SPARSE = dict(n_keys=64, seed0=3000, n_ops=100, concurrency=5,
+                    value_range=5)
+BATCH_SPARSE_CORRUPT = (3064, 3065)
+BATCH_PLAIN_KEYS = 8
+ORACLE_WORKERS = 6
+
+
+def batch_key_specs(cfg: dict, corrupt=()) -> list:
+    """(key, seed, corrupted, generator kwargs) of each key of a batch
+    configuration."""
+    kw = {k: v for k, v in cfg.items() if k not in ("n_keys", "seed0")}
+    return [(k, cfg["seed0"] + k, k in corrupt, kw)
+            for k in range(cfg["n_keys"])]
+
+
+def batch_key_history(spec):
+    """One key's history from its spec (see :func:`batch_key_specs`)."""
+    from jepsen_tpu_torch.lin import synth
+
+    _, seed, corrupted, kw = spec
+    h = synth.generate_register_history(seed=seed, **kw)
+    return synth.corrupt_history(h, seed=seed) if corrupted else h
+
+
+def oracle_verdicts(specs) -> list:
+    """(key, valid?, dead-row) of each key by the port's CPU oracle. Runs
+    in a worker process, which makes the histories from their specs."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import cpu, prepare
+
+    out = []
+    for spec in specs:
+        p = prepare.prepare(m.cas_register(), batch_key_history(spec))
+        r = cpu.check_packed(p)
+        out.append((spec[0], r["valid?"], r.get("dead-row")))
+    return out
+
+
+def start_oracle(pool, specs) -> list:
+    """The CPU oracle's verdicts on ``specs``, submitted in chunks to
+    ``pool``; read them with :func:`oracle_results`."""
+    step = max(1, len(specs) // (4 * ORACLE_WORKERS))
+    return [pool.submit(oracle_verdicts, specs[i:i + step])
+            for i in range(0, len(specs), step)]
+
+
+def oracle_results(futures) -> dict:
+    return {k: (v, d) for f in futures for k, v, d in f.result()}
+
+
+def kv_history(subs: dict):
+    """Every key's ops wrapped in ``KV(key, value)``, in one history."""
+    from jepsen_tpu_torch import independent
+
+    return [o.replace(value=independent.KV(k, o.value))
+            for k, h in subs.items() for o in h]
+
+
+def batch_bound_ms(widths, w: int, ns: int, state) -> tuple:
+    """Least time for one batched launch, summed over its keys from each
+    key's own needs: its bitmap (at the launch's 2^w words) in and out,
+    the masks and return slots of the rows it ran, its row count and
+    state row, over the memory rate; and the ops its data needed, its
+    sweeps and rows over the 2^w_k words of its own width w_k (a key's
+    configs never leave them), as :func:`bound_ms`, over the peak integer
+    rate. ``widths`` gives each key's own width, ``state`` the launch's
+    state rows."""
+    import torch
+
+    rows = state[:, 0].long()
+    sweeps = state[:, 4].long()
+    nbytes = int((2 * 4 * (1 << w) + 4 * rows * w * ns + 4 * rows
+                  + 4 + 4 * 5).sum())
+    words = torch.tensor([1 << wk for wk in widths], dtype=torch.int64)
+    ops = int((sweeps * (words // 2) * OPS_PER_PAIR
+               + rows * words * OPS_PER_FILTER_WORD).sum())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
+def dense_batch_phase(dev, pool, tag: str, cfg: dict, corrupt, smi: str):
+    """One dense key set through the lifted checker on the card, held
+    against the CPU oracle, the per-key checks and the single-key kernel.
+    Returns the numbers of the kernels line's ``dense_chunk_batch``
+    entry."""
+    import torch
+
+    from jepsen_tpu_torch import _u32, checker, independent
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import batched, dense_cuda, prepare
+
+    model = m.cas_register()
+    specs = batch_key_specs(cfg, corrupt)
+    oracle = start_oracle(pool, specs)
+    t0 = time.perf_counter()
+    subs = {spec[0]: batch_key_history(spec) for spec in specs}
+    h = kv_history(subs)
+    t_synth = time.perf_counter() - t0
+
+    # The main path: the lifted checker, counts set to 0 just before.
+    ck = independent.checker(checker.linearizable(algorithm="gpu",
+                                                  device=dev))
+    dense_cuda.BATCH_LAUNCHES = 0
+    dense_cuda.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ck.check(None, model, h, {})
+    t_e2e = time.perf_counter() - t0
+    launches = dense_cuda.BATCH_LAUNCHES
+    single = dense_cuda.LAUNCHES
+    analyzers = {v.get("analyzer") for v in r["results"].values()}
+    log(f"[{tag}] keys={r['n-keys']} ops={len(h)} valid?={r['valid?']} "
+        f"failures={r['failures']} batch-engaged={r['batch-engaged']} "
+        f"batch-keys={r['batch-keys']} analyzers={sorted(analyzers)} "
+        f"dense_chunk_batch launches={launches} single-key launches="
+        f"{single}")
+    if not (r["batch-engaged"] and r["batch-keys"] == cfg["n_keys"]
+            and r["n-keys"] == cfg["n_keys"]
+            and analyzers == {"gpu-dense-batch"}):
+        raise AssertionError(f"[{tag}] the batch did not decide every key "
+                             f"by gpu-dense-batch")
+    if launches < 1 or single != 0:
+        raise AssertionError(f"[{tag}] dense_chunk_batch launched "
+                             f"{launches} times, the single-key kernel "
+                             f"{single}")
+
+    # The batch alone, with and without packing.
+    t0 = time.perf_counter()
+    rb = batched.try_check_batch(model, subs, device=dev)
+    t_batch = time.perf_counter() - t0
+    packed = {k: prepare.prepare(model, sub) for k, sub in subs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp = batched.try_check_batch(model, packed, device=dev)
+    t_device = time.perf_counter() - t0
+    if rb != r["results"] or rp != r["results"]:
+        raise AssertionError(f"[{tag}] a second batch run differs")
+
+    # The per-key loop through the single-key checker.
+    one = checker.linearizable(algorithm="gpu", device=dev)
+    t0 = time.perf_counter()
+    per_key = {k: one.check(None, model, sub) for k, sub in subs.items()}
+    t_loop = time.perf_counter() - t0
+    for k, want in per_key.items():
+        got = r["results"][k]
+        for key in ("valid?", "dead-row", "op"):
+            if got.get(key) != want.get(key):
+                raise AssertionError(f"[{tag}] key {k}: batch {key} "
+                                     f"{got.get(key)!r}, per-key check "
+                                     f"{want.get(key)!r}")
+
+    # Every key's bitmap and state row against the single-key kernel, on
+    # the batch the main path launched.
+    b = batched.dense_batch(packed, dev)
+    if isinstance(b, batched.Decline):
+        raise AssertionError(f"[{tag}] dense_batch declined: {b}")
+    ks, plans, w, ns, r_pad, inp = (b.keys, b.plans, b.w, b.ns, b.r_pad,
+                                    b.inp)
+    res = dense_cuda.dense_chunk_batch(inp.F, inp.n_rows, inp.masks,
+                                       inp.ret_slot, w=w, ns=ns)
+    n_rows = inp.n_rows.tolist()
+    singles = [dense_cuda.dense_chunk(inp.F[i], n_rows[i], inp.masks[i],
+                                      inp.ret_slot[i], w=w, ns=ns)
+               for i in range(len(ks))]
+    F1 = torch.stack([o.F for o in singles])
+    S1 = torch.stack([o.state for o in singles])
+    torch.cuda.synchronize()
+    if not (torch.equal(F1, res.F) and torch.equal(S1, res.state)):
+        bad = [ks[i] for i in range(len(ks))
+               if not (torch.equal(F1[i], res.F[i])
+                       and torch.equal(S1[i], res.state[i]))]
+        raise AssertionError(f"[{tag}] batched kernel != single-key "
+                             f"kernel on keys {bad[:8]}")
+    width_keys = {wk: sum(pl[0] == wk for pl in plans)
+                  for wk in sorted({pl[0] for pl in plans})}
+    log(f"[{tag}] every key's bitmap and state row equal the single-key "
+        f"kernel's: w={w} ({dense_cuda.kernel_path(w)}) ns={ns} r_pad="
+        f"{r_pad} keys at each width {width_keys} rows {min(n_rows)}..{max(n_rows)} "
+        f"passes {int(res.state[:, 3].sum())} sweeps "
+        f"{int(res.state[:, 4].sum())}")
+
+    # The kernel against its plain version on the card, on 8 keys.
+    # The corrupted keys first, then the others in the batch's order.
+    first = list(corrupt) + [k for k in ks if k not in corrupt]
+    sel = torch.tensor([ks.index(k) for k in first[:BATCH_PLAIN_KEYS]],
+                       device=dev)
+    sub = (inp.F[sel].contiguous(), inp.n_rows[sel].contiguous(),
+           inp.masks[sel].contiguous(), inp.ret_slot[sel].contiguous())
+    kern = dense_cuda.dense_chunk_batch(*sub, w=w, ns=ns)
+    # The plain version waits for the device inside (its host loop), so
+    # this one run, on the host clock, is its time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = dense_cuda.dense_chunk_batch_plain(*sub, w=w, ns=ns)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((_u32.widen(kern.F) - _u32.widen(plain.F)).abs().max())
+    if not (torch.equal(kern.F, plain.F)
+            and torch.equal(kern.state, plain.state)):
+        raise AssertionError(f"[{tag}] dense_chunk_batch != its plain "
+                             f"version on keys {sel.tolist()}")
+    # A row count past the tables: both run no row for that key, flag it
+    # alike, and the host check rejects it.
+    bad_rows = sub[1].clone()
+    bad_rows[0] = r_pad + 1
+    kb = dense_cuda.dense_chunk_batch(sub[0], bad_rows, *sub[2:], w=w, ns=ns)
+    pb = dense_cuda.dense_chunk_batch_plain(sub[0], bad_rows, *sub[2:], w=w,
+                                            ns=ns)
+    if not (torch.equal(kb.F, pb.F) and torch.equal(kb.state, pb.state)
+            and int(kb.state[0, 0]) == dense_cuda.BAD_ROWS
+            and torch.equal(kb.F[0], sub[0][0])):
+        raise AssertionError(f"[{tag}] a bad row count: kernel state "
+                             f"{kb.state[0].tolist()}, plain "
+                             f"{pb.state[0].tolist()}")
+    try:
+        dense_cuda.check_batch_state(kb.state.cpu())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"[{tag}] check_batch_state passed a bad row "
+                             f"count")
+
+    # Times.
+    def launch(*a):
+        return lambda: dense_cuda.dense_chunk_batch(*a, w=w, ns=ns)
+
+    ms = time_chunk(launch(inp.F, inp.n_rows, inp.masks, inp.ret_slot),
+                    reps=5)
+    ms_sel = time_chunk(launch(*sub), reps=5)
+    widths = [pl[0] for pl in plans]
+    b_ms, b_by = batch_bound_ms(widths, w, ns, res.state.cpu())
+    pad_ms, _ = batch_bound_ms([w] * len(ks), w, ns, res.state.cpu())
+
+    verdicts = oracle_results(oracle)
+    want_fail = sorted((k for k, (v, _) in verdicts.items()
+                        if v is not True), key=repr)
+    if r["failures"] != want_fail:
+        raise AssertionError(f"[{tag}] failures {r['failures']}, the CPU "
+                             f"oracle's {want_fail}")
+    for k in want_fail:
+        if r["results"][k].get("dead-row") != verdicts[k][1]:
+            raise AssertionError(f"[{tag}] key {k}: dead row "
+                                 f"{r['results'][k].get('dead-row')}, the "
+                                 f"oracle's {verdicts[k][1]}")
+    log(f"[{tag}] failures {r['failures']} = the CPU oracle's; every "
+        f"key's verdict, dead row and op = the per-key check's; kernel = "
+        f"plain on keys {sel.tolist()} (bit-exact), and on a row count "
+        f"past the tables (both flag it, the host check raises)")
+    log(f"[{tag}] {smi} | synth+wrap {t_synth:.3f}s; lifted checker e2e "
+        f"{t_e2e:.3f}s; batch with packing {t_batch:.3f}s, without "
+        f"{t_device:.3f}s; per-key loop (checker.linearizable gpu) "
+        f"{t_loop:.3f}s")
+    log(f"[{tag}] {smi} | dense_chunk_batch {ms:.4f} ms a launch over "
+        f"{len(ks)} keys ({ms / len(ks) * 1e3:.2f} us a key), bound "
+        f"{b_ms:.6f} ms ({b_by}; each key at its own width; "
+        f"{ms / b_ms:.1f}x it), padded bound (every key at w={w}) "
+        f"{pad_ms:.6f} ms; on {len(sel)} keys {ms_sel:.4f} ms, "
+        f"plain {plain_ms:.2f} ms; launches on the main path {launches}; "
+        f"no single PyTorch call computes this function")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "padded_bound_ms": pad_ms,
+            "shape": {"keys": len(ks), "w": w, "ns": ns, "r_pad": r_pad,
+                      "keys_at_width": width_keys},
+            "plain_keys": len(sel), "ms_plain_keys": ms_sel,
+            "batch_s": t_batch, "batch_device_s": t_device,
+            "per_key_loop_s": t_loop, "lifted_e2e_s": t_e2e}
+
+
+def sparse_batch_phase(dev, pool, smi: str):
+    """The group that leaves the dense bounds through the multiword
+    sparse batch, held against the CPU oracle and the same batch on the
+    CPU."""
+    import torch
+
+    from jepsen_tpu_torch import checker, independent
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.history import History, invoke_op, ok_op
+    from jepsen_tpu_torch.lin import batched, bfs, cpu, prepare
+
+    model = m.cas_register()
+    specs = batch_key_specs(BATCH_SPARSE)
+    specs += [(seed, seed, True, specs[0][3]) for seed in
+              BATCH_SPARSE_CORRUPT]
+    oracle = start_oracle(pool, specs)
+    subs = {spec[0]: batch_key_history(spec) for spec in specs}
+    chain = [invoke_op(0, "write", 0), ok_op(0, "write", 0)]
+    chain += [invoke_op(i + 1, "cas", [i, i + 1]) for i in range(24)]
+    chain += [ok_op(i + 1, "cas", [i, i + 1]) for i in range(24)]
+    subs["chain"] = History.of(*chain)
+    ck = independent.checker(checker.linearizable(algorithm="gpu",
+                                                  device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ck.check(None, model, kv_history(subs), {})
+    t_e2e = time.perf_counter() - t0
+    analyzers = {v.get("analyzer") for v in r["results"].values()}
+    if not (r["batch-keys"] == len(subs) == r["n-keys"]
+            and analyzers == {"gpu-bfs-batch"}):
+        raise AssertionError(f"[batch-sparse] batch-keys {r['batch-keys']} "
+                             f"of {len(subs)}, analyzers {analyzers}")
+    verdicts = oracle_results(oracle)
+    verdicts["chain"] = (lambda o: (o["valid?"], o.get("dead-row")))(
+        cpu.check_packed(prepare.prepare(model, subs["chain"])))
+    for k, (v, d) in verdicts.items():
+        got = r["results"][k]
+        if (got["valid?"], got.get("dead-row")) != (v, d):
+            raise AssertionError(f"[batch-sparse] key {k!r}: batch "
+                                 f"{got['valid?']} row {got.get('dead-row')}"
+                                 f", CPU oracle {v} row {d}")
+
+    # The same search on the card and on the CPU, bit for bit, at each
+    # capacity of the batch's schedule up to the one that decided.
+    packed = {k: prepare.prepare(model, sub) for k, sub in subs.items()}
+    ks, w_pad, nw, r_pad = batched.sparse_batch_shape(packed)
+    ps = [packed[k] for k in ks]
+    cpu_dev = torch.device("cpu")
+    for cap in batched.BATCH_CAP_SCHEDULE:
+        outs, secs = {}, {}
+        for d in (dev, cpu_dev):
+            tables = batched.sparse_batch_tables(ps, r_pad, w_pad, nw, d)
+            entry = batched.sparse_batch_entry(ps, cap, nw, d)
+            t0 = time.perf_counter()
+            outs[d] = [x.cpu() for x in bfs._search_chunk(
+                r_pad, *tables, *entry, cap=cap, step_fn=ps[0].kernel.step)]
+            secs[d] = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(outs[dev],
+                                                     outs[cpu_dev])):
+            raise AssertionError(f"[batch-sparse] the card's frontiers at "
+                                 f"cap {cap} differ from the CPU run's")
+        ovf = [k for k, o in zip(ks, outs[dev][5].tolist()) if o]
+        log(f"[batch-sparse] {smi} | search at cap {cap}: card "
+            f"{secs[dev]:.3f}s, CPU {secs[cpu_dev]:.3f}s; frontiers (counts "
+            f"{int(outs[dev][2].min())}..{int(outs[dev][2].max())}) equal "
+            f"bit for bit; overflowed keys {ovf}")
+        if not ovf:
+            break
+    if ovf:
+        raise AssertionError(f"[batch-sparse] keys {ovf} overflow the "
+                             f"last capacity")
+    log(f"[batch-sparse] keys={len(ks)} window {w_pad} (+1 pad slot) "
+        f"r_pad={r_pad} valid?={r['valid?']} failures={r['failures']} "
+        f"analyzers={sorted(analyzers)}; verdicts and dead rows = the CPU "
+        f"oracle's")
+    log(f"[batch-sparse] {smi} | lifted checker e2e {t_e2e:.3f}s")
+
+
+def batch_phases(dev, smi: str) -> list:
+    """Phase 20, independent keys. Returns the kernels line's
+    ``dense_chunk_batch`` entry."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=ORACLE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        etcd = dense_batch_phase(dev, pool, "batch-etcd", BATCH_ETCD,
+                                 BATCH_ETCD_CORRUPT, smi)
+        config4 = dense_batch_phase(dev, pool, "batch-config4",
+                                    BATCH_CONFIG4, (), smi)
+        sparse_batch_phase(dev, pool, smi)
+    log(f"[batch] phase 20 in {time.perf_counter() - t0:.1f}s")
+    return [{"name": "dense_chunk_batch", "route": "cuda",
+             "source": "jepsen_tpu_torch/csrc/dense_chunk.cu",
+             "replaces": "jepsen_tpu/lin/batched.py:153",
+             "bit_exact": True, **etcd,
+             "config4": {k: config4[k] for k in (
+                 "launches", "ms", "bound_ms", "bound_by",
+                 "padded_bound_ms", "shape",
+                 "batch_s", "batch_device_s", "per_key_loop_s",
+                 "lifted_e2e_s")}}]
+
+
 def main(device: str = "cuda") -> int:
     """Run every phase on ``device`` ("cpu" only rehearses the control
     flow with the plain versions in place of the kernels)."""
@@ -2745,6 +3151,7 @@ def main(device: str = "cuda") -> int:
     kernels += dom_entries
     next(k for k in kernels if k["name"] == "compact_keys")[
         "crashdom_headline_paths"] = dom_compact_paths
+    kernels += batch_phases(dev, smi)
     return finish(kernels, smi, kind)
 
 

@@ -3,7 +3,8 @@
 A port of :mod:`jepsen_tpu`'s dense linearizability path to an NVIDIA
 Hopper GPU: history packing, the dense config-space bitmap engine with
 its hand-written CUDA kernel (``csrc/dense_chunk.cu``), the CPU oracle,
-counterexample replay and the ``linearizable`` checker. It imports torch
+counterexample replay, the ``linearizable`` checker and its lift to
+independent keys (:mod:`jepsen_tpu_torch.independent`). It imports torch
 and numpy only.
 
 Entry points take ``device=``. Without one they run on the card, and

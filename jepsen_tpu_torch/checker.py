@@ -2,17 +2,34 @@
 
 A checker validates a recorded history against a model and returns a
 result map with a ``"valid?"`` key — ``True``, ``False`` or
-``"unknown"``. ``linearizable`` dispatches to :mod:`jepsen_tpu_torch.lin`
-with the result contract of :func:`jepsen_tpu.checker.linearizable`.
+``"unknown"``; ``merge_valid`` combines such values. ``linearizable``
+dispatches to :mod:`jepsen_tpu_torch.lin` with the result contract of
+:func:`jepsen_tpu.checker.linearizable`.
 """
 
 from __future__ import annotations
 
 import threading
 import traceback
-from typing import Callable
+from typing import Any, Callable
 
 VALID = "valid?"
+
+# Larger numbers dominate when checkers are composed.
+_VALID_PRIORITIES = {True: 0, False: 1, "unknown": 0.5}
+
+
+def merge_valid(valids) -> Any:
+    """Merge valid? values, yielding the highest-priority one. Raises on
+    a value that is not a valid? value."""
+    out = True
+    for v in valids:
+        for x in (out, v):
+            if x not in _VALID_PRIORITIES:
+                raise ValueError(f"{x!r} is not a known valid? value")
+        if _VALID_PRIORITIES[v] > _VALID_PRIORITIES[out]:
+            out = v
+    return out
 
 
 class Checker:
@@ -38,6 +55,11 @@ def check_safe(checker: Checker, test, model, history, opts=None) -> dict:
         return checker.check(test, model, history, opts or {})
     except Exception:
         return {VALID: "unknown", "error": traceback.format_exc()}
+
+
+def unbridled_optimism() -> Checker:
+    """Everything is awesoooommmmme!"""
+    return FnChecker(lambda test, model, history, opts: {VALID: True})
 
 
 def linearizable(algorithm: str = "competition",
@@ -100,4 +122,7 @@ def linearizable(algorithm: str = "competition",
     ck = FnChecker(check)
     ck.is_linearizable = True
     ck.algorithm = algorithm
+    # Where the device engine runs; a lifted checker's key batch runs
+    # there too (jepsen_tpu_torch.independent).
+    ck.device = device
     return ck

@@ -57,10 +57,17 @@
 //
 // What bounds it now: per row the block's barriers (row setup, 2 a
 // pass, the filter) and per slot the chain of shuffles and ORs over the
-// source slices, on ONE SM; rows are strictly sequential, so 131 of the
-// 132 SMs idle. What a later change can do: batch independent keys, one
-// block each, across the SMs, or split a wider bitmap over a
-// thread-block cluster.
+// source slices, on ONE SM; rows are strictly sequential, so a single
+// history leaves 131 of the 132 SMs idle. Independent keys
+// (jepsen_tpu_torch/lin/batched.py) fill them: dense_chunk_batch_launch
+// runs the same kernels over a grid of K blocks, one key each, each with
+// its own bitmap, tables, row count and state row, each stopping at its
+// own dead row or pass ceiling. That is the XLA twin's
+// jax.vmap(dense._dense_chunk) over keys (jepsen_tpu/lin/batched.py:153),
+// which has no Pallas kernel. At the small widths of per-key histories
+// (w 6-12: 32-128 threads, 256 B-16 KiB of slices) several blocks share
+// an SM; at w 15 one block fills one. A wider bitmap could still be split
+// over a thread-block cluster.
 //
 // Device-memory placement, for 16 <= w <= 20 (a bitmap of 256 KiB to
 // 4 MiB does not fit a block's shared memory): the word-by-word sweep. One
@@ -95,6 +102,25 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 __device__ __forceinline__ uint32_t spread(uint32_t p, int j) {
   const uint32_t lo = p & ((1u << j) - 1u);
   return ((p ^ lo) << 1) | lo;
+}
+
+// Block k of a launch over K keys works on key k alone: its bitmap (in
+// and out) at k * 2^w words, its masks at k * r_stride * w * ns words,
+// its return slots at k * r_stride and its state row at 5 * k (each
+// kernel moves its pointers so at entry; nothing is shared between
+// blocks). Its row count is key_rows[k]; a launch of one chunk
+// (key_rows null, one block) keeps n_rows. A count outside [0, r_stride]
+// gives -1: the block then runs no row, passes its bitmap through and
+// writes rows_done = -1 (kBadRows), which the host rejects, so no block
+// reads past its key's tables and none answers for a bad count.
+constexpr int kBadRows = -1;
+
+__device__ __forceinline__ int key_row_count(int n_rows,
+                                             const int32_t* key_rows,
+                                             int r_stride) {
+  if (key_rows == nullptr) return n_rows;
+  const int n = key_rows[blockIdx.x];
+  return n < 0 || n > r_stride ? kBadRows : n;
 }
 
 // --- bit-sliced kernel (w <= kSharedMaxW) --------------------------------
@@ -286,8 +312,18 @@ template <int NS, int MAXT>
 __global__ void __launch_bounds__(MAXT, 1)
 dense_slice_kernel(const uint32_t* __restrict__ f_in, uint32_t* f_out,
                    const uint32_t* __restrict__ masks,
-                   const int32_t* __restrict__ ret_slot, int n_rows, int w,
+                   const int32_t* __restrict__ ret_slot, int n_rows,
+                   const int32_t* __restrict__ key_rows, int r_stride, int w,
                    int ns, int32_t* __restrict__ state) {
+  const size_t key = blockIdx.x;
+  f_in += key << w;
+  f_out += key << w;
+  masks += key * r_stride * w * ns;
+  ret_slot += key * r_stride;
+  state += 5 * key;
+  n_rows = key_row_count(n_rows, key_rows, r_stride);
+  const bool bad_rows = n_rows == kBadRows;
+  if (bad_rows) n_rows = 0;
   // The slices: G[t * P + swz(p)].
   extern __shared__ uint32_t G[];
   // Per slot of the row: its masks (msk[j][t] = source states that go to
@@ -348,12 +384,14 @@ dense_slice_kernel(const uint32_t* __restrict__ f_in, uint32_t* f_out,
   }
   if (tid == 0) {
     for (int q = 0; q < 5; ++q) state[q] = st[q];
+    if (bad_rows) state[0] = kBadRows;
   }
 }
 
 template <int NS, int MAXT>
 int launch_slices(const uint32_t* fi, uint32_t* fo, const uint32_t* mk,
-                  const int32_t* rs, int n_rows, int w, int ns, int32_t* sv,
+                  const int32_t* rs, int n_rows, const int32_t* kr,
+                  int r_stride, int keys, int w, int ns, int32_t* sv,
                   cudaStream_t st) {
   // 32 slices of 2^(w - 5) words: 4 * 2^w bytes, at least 32 words.
   // Over 48 KiB of dynamic shared memory needs the opt-in; a refused
@@ -366,8 +404,8 @@ int launch_slices(const uint32_t* fi, uint32_t* fo, const uint32_t* mk,
       static_cast<int>(sizeof(uint32_t)) << kSharedMaxW);
   if (e != cudaSuccess) return static_cast<int>(e);
   dense_slice_kernel<NS, MAXT>
-      <<<1, positions > 32 ? positions : 32, bytes, st>>>(
-      fi, fo, mk, rs, n_rows, w, ns, sv);
+      <<<keys, positions > 32 ? positions : 32, bytes, st>>>(
+      fi, fo, mk, rs, n_rows, kr, r_stride, w, ns, sv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,8 +414,18 @@ int launch_slices(const uint32_t* fi, uint32_t* fo, const uint32_t* mk,
 __global__ void __launch_bounds__(kThreads, 1)
 dense_device_kernel(const uint32_t* __restrict__ f_in, uint32_t* F,
                     const uint32_t* __restrict__ masks,
-                    const int32_t* __restrict__ ret_slot, int n_rows, int w,
+                    const int32_t* __restrict__ ret_slot, int n_rows,
+                    const int32_t* __restrict__ key_rows, int r_stride, int w,
                     int ns, int32_t* __restrict__ state) {
+  const size_t key = blockIdx.x;
+  f_in += key << w;
+  F += key << w;
+  masks += key * r_stride * w * ns;
+  ret_slot += key * r_stride;
+  state += 5 * key;
+  n_rows = key_row_count(n_rows, key_rows, r_stride);
+  const bool bad_rows = n_rows == kBadRows;
+  if (bad_rows) n_rows = 0;
   // succ[j][s]: target states of slot j's op from source state s. All
   // 32 source bits get an entry, so a word bit at or above ns acts
   // exactly as the masks say (no transitions for real tables).
@@ -459,12 +507,45 @@ dense_device_kernel(const uint32_t* __restrict__ f_in, uint32_t* F,
   }
 
   if (tid == 0) {
-    state[0] = rows_done;
+    state[0] = bad_rows ? kBadRows : rows_done;
     state[1] = dead;
     state[2] = trunc;
     state[3] = passes;
     state[4] = sweeps;
   }
+}
+
+// Launches `keys` blocks, one key each (see key_row_count), on `stream`.
+int launch(const void* f_in, void* f_out, const void* masks,
+           const void* ret_slot, int n_rows, const void* key_rows,
+           int r_stride, int keys, int w, int ns, void* state, void* stream) {
+  if (w < 1 || w > kMaxW || ns < 1 || ns > kMaxNs || n_rows < 0 ||
+      r_stride < 0 || keys < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* fi = static_cast<const uint32_t*>(f_in);
+  uint32_t* fo = static_cast<uint32_t*>(f_out);
+  const uint32_t* mk = static_cast<const uint32_t*>(masks);
+  const int32_t* rs = static_cast<const int32_t*>(ret_slot);
+  const int32_t* kr = static_cast<const int32_t*>(key_rows);
+  int32_t* sv = static_cast<int32_t*>(state);
+  if (w <= kSharedMaxW) {
+    // w = 15 takes 1024 threads (64 registers each); below, at most 512.
+    if (w == kSharedMaxW) {
+      return ns <= 8 ? launch_slices<8, 1024>(fi, fo, mk, rs, n_rows, kr,
+                                              r_stride, keys, w, ns, sv, st)
+                     : launch_slices<32, 1024>(fi, fo, mk, rs, n_rows, kr,
+                                               r_stride, keys, w, ns, sv, st);
+    }
+    return ns <= 8 ? launch_slices<8, 512>(fi, fo, mk, rs, n_rows, kr,
+                                           r_stride, keys, w, ns, sv, st)
+                   : launch_slices<32, 512>(fi, fo, mk, rs, n_rows, kr,
+                                            r_stride, keys, w, ns, sv, st);
+  }
+  dense_device_kernel<<<keys, kThreads, 0, st>>>(fi, fo, mk, rs, n_rows, kr,
+                                                 r_stride, w, ns, sv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -479,30 +560,24 @@ int dense_chunk_shared_max_w() { return kSharedMaxW; }
 int dense_chunk_launch(const void* f_in, void* f_out, const void* masks,
                        const void* ret_slot, int n_rows, int w, int ns,
                        void* state, void* stream) {
-  if (w < 1 || w > kMaxW || ns < 1 || ns > kMaxNs || n_rows < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* fi = static_cast<const uint32_t*>(f_in);
-  uint32_t* fo = static_cast<uint32_t*>(f_out);
-  const uint32_t* mk = static_cast<const uint32_t*>(masks);
-  const int32_t* rs = static_cast<const int32_t*>(ret_slot);
-  int32_t* sv = static_cast<int32_t*>(state);
-  if (w <= kSharedMaxW) {
-    // w = 15 takes 1024 threads (64 registers each); below, at most 512.
-    if (w == kSharedMaxW) {
-      return ns <= 8
-                 ? launch_slices<8, 1024>(fi, fo, mk, rs, n_rows, w, ns, sv, st)
-                 : launch_slices<32, 1024>(fi, fo, mk, rs, n_rows, w, ns, sv,
-                                           st);
-    }
-    return ns <= 8
-               ? launch_slices<8, 512>(fi, fo, mk, rs, n_rows, w, ns, sv, st)
-               : launch_slices<32, 512>(fi, fo, mk, rs, n_rows, w, ns, sv, st);
-  }
-  dense_device_kernel<<<1, kThreads, 0, st>>>(fi, fo, mk, rs, n_rows, w, ns,
-                                              sv);
-  return static_cast<int>(cudaGetLastError());
+  return launch(f_in, f_out, masks, ret_slot, n_rows, nullptr, n_rows, 1, w,
+                ns, state, stream);
+}
+
+// Launches one chunk for each of `keys` independent keys on `stream`, one
+// block a key, all in one grid: f_in and f_out u32[keys, 2^w], masks
+// u32[keys, r_pad, w, ns], ret_slot i32[keys, r_pad], n_rows i32[keys]
+// (key k runs its first n_rows[k] rows; a count outside [0, r_pad] runs
+// none and reads rows_done = -1) and state i32[keys, 5]. Each key stops
+// at its own dead row or pass ceiling. Returns the cudaError_t of
+// the launch (0 on success).
+int dense_chunk_batch_launch(const void* f_in, void* f_out, const void* masks,
+                             const void* ret_slot, const void* n_rows,
+                             int keys, int r_pad, int w, int ns, void* state,
+                             void* stream) {
+  if (n_rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(f_in, f_out, masks, ret_slot, 0, n_rows, r_pad, keys, w, ns,
+                state, stream);
 }
 
 }  // extern "C"

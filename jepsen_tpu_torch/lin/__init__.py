@@ -14,6 +14,8 @@
   :mod:`jepsen_tpu_torch.lin.psort_fused`'s kernels.
 - :mod:`jepsen_tpu_torch.lin.witness` — counterexamples for device
   verdicts.
+- :mod:`jepsen_tpu_torch.lin.batched` — many independent keys in one
+  device search (:mod:`jepsen_tpu_torch.independent`'s checker).
 
 ``analysis(model, history)`` returns ``{"valid?": bool, "op": ...,
 "configs": [...], "final-paths": [...]}``, the result shape of

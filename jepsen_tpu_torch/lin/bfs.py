@@ -49,7 +49,10 @@ entry frontier, with the pass budget :func:`_host_it_max` (the source of
 ``overflow: budget``).
 
 Left out, each an honest ``unknown`` naming it (:func:`band_error`):
-the generic packed band (mutex), the multiword formulation. Not ported
+the generic packed band (mutex), the multiword formulation as a route of
+one history. The multiword engine itself is here, with a leading key
+axis, for the batch of independent keys (:func:`_search_chunk`, at the
+end of this module; :mod:`jepsen_tpu_torch.lin.batched`). Not ported
 either: supervision, checkpoint/resume, the incremental entry, and the
 host-row executor's dispatch amortisations (episode scheduler, K-row
 waves) and fault rungs (per-pass and CPU-oracle rows), which change no
@@ -1329,3 +1332,208 @@ def _materialize(snapshots, eng: _Engine):
         bits, state = eng.unpack(lo, hi, count)
         out.append((base, bits.cpu().numpy(), state.cpu().numpy(), count))
     return out
+
+
+# --- the multiword engine, with a leading key axis ---------------------------
+#
+# The reference's general formulation (jepsen_tpu/lin/bfs.py:783-828): a
+# config is a bitset of NW u32 words and a state vector of S ints, kept
+# as int64 tensors (bits wide, :mod:`jepsen_tpu_torch._u32`; state
+# signed), with a leading key axis K. The batch of independent keys
+# (:mod:`jepsen_tpu_torch.lin.batched`) runs it for every key of a
+# group at once, where the reference vmaps it; K = 1 is the solo case.
+# Per lane it is the vmapped lax.while_loop: a lane whose loop condition
+# is false keeps its frontier, rows done, dead and overflow flags while
+# the others go on. The loops are driven from the host, with one
+# blocking fetch per row and one per closure pass for the whole batch.
+
+
+def _slot_bits(W: int, nw: int, device=None) -> torch.Tensor:
+    """int64[W, NW] (u32 words): row j has bit j % 32 set in word j // 32."""
+    tbl = torch.zeros((W, nw), dtype=torch.int64, device=device)
+    j = torch.arange(W, device=device)
+    tbl[j, j // 32] = torch.ones_like(j) << (j % 32)
+    return tbl
+
+
+def _dedup(bits, state, valid, cap: int):
+    """Sort-dedup-compact of multiword configs, per key: ``bits``
+    int64[K, n, NW] (u32 words), ``state`` int64[K, n, S], ``valid``
+    bool[K, n]. Returns (bits[K, cap, NW], state[K, cap, S], count[K],
+    overflow[K]): the distinct valid configs of each key in the
+    reference's order, lexicographic on (invalid flag, the bit words as
+    unsigned, the state words as signed), zero past the count; overflow
+    where more than ``cap`` survive (the first ``cap`` are kept), as
+    :func:`jepsen_tpu.lin.bfs._dedup`.
+
+    The 32-bit columns, state words shifted into unsigned order, pair up
+    into int64 sort keys (``hi - 2**31``, ``lo``), whose signed order is
+    the pair's unsigned order; a chain of stable sorts runs from the least
+    significant key, and a stable partition puts the valid rows first (the
+    flag is the most significant column)."""
+    K, n, nw = bits.shape
+    S = state.shape[2]
+    dev = bits.device
+    cols = [bits[..., i] for i in range(nw)] \
+        + [state[..., i] + (1 << 31) for i in range(S)]
+    if len(cols) % 2:
+        cols.insert(0, torch.zeros_like(cols[0]))
+    keys = [(cols[i] - (1 << 31)) * (1 << 32) + cols[i + 1]
+            for i in range(0, len(cols), 2)]
+    perm = torch.arange(n, device=dev).expand(K, n)
+    for key in reversed(keys):
+        order = torch.sort(key.gather(1, perm), dim=1, stable=True).indices
+        perm = perm.gather(1, order)
+    v = valid.gather(1, perm)
+    n_valid = v.sum(1, keepdim=True)
+    dest = torch.where(v, torch.cumsum(v, 1) - 1,
+                       n_valid + torch.cumsum(~v, 1) - 1)
+    perm = torch.empty_like(perm).scatter_(1, dest, perm)
+    bits_s = bits.gather(1, perm.unsqueeze(-1).expand(K, n, nw))
+    state_s = state.gather(1, perm.unsqueeze(-1).expand(K, n, S))
+    differs = (bits_s[:, 1:] != bits_s[:, :-1]).any(-1) \
+        | (state_s[:, 1:] != state_s[:, :-1]).any(-1)
+    first = torch.ones((K, 1), dtype=torch.bool, device=dev)
+    mask = (torch.arange(n, device=dev) < n_valid) \
+        & torch.cat([first, differs], dim=1)
+    total = mask.sum(1)
+    # Survivors to their rank, in order; the rest to a dropped slot cap.
+    pos = torch.where(mask, torch.cumsum(mask, 1) - 1, cap).clamp(max=cap)
+    out_bits = torch.zeros((K, cap + 1, nw), dtype=torch.int64, device=dev)
+    out_state = torch.zeros((K, cap + 1, S), dtype=torch.int64, device=dev)
+    out_bits.scatter_(1, pos.unsqueeze(-1).expand(K, n, nw), bits_s)
+    out_state.scatter_(1, pos.unsqueeze(-1).expand(K, n, S), state_s)
+    return (out_bits[:, :cap], out_state[:, :cap],
+            total.clamp(max=cap), total > cap)
+
+
+def _closure_pass_mw(bits_in, state_in, count, act, f_row, v_row,
+                     pure_row, pred_row, *, cap: int, W: int, nw: int,
+                     step_fn, slot_bit, rows: int):
+    """ONE closure pass over each key's multiword configs (``bits_in``
+    [K, cap, NW], ``state_in`` [K, cap, S], ``count`` [K]) on that key's
+    row (``act``/``f_row``/``pure_row`` [K, W], ``v_row`` [K, W, VW],
+    ``pred_row`` [K, W, NW]): carried configs absorb their legal pure
+    slots in place, non-pure legal slots expand under the canonical-chain
+    gate, and the candidates (carried and expanded) sort-dedup.
+    Returns (bits, state, count, changed, overflow), each per key, as
+    :func:`jepsen_tpu.lin.bfs._closure_pass_mw`. ``slot_bit`` is
+    :func:`_slot_bits` (W, nw); ``rows`` (at least every key's count)
+    expands only that prefix of the frontier: the configs past the count
+    are invalid, so the result is that of the whole arrays."""
+    K = bits_in.shape[0]
+    S = state_in.shape[2]
+    dev = bits_in.device
+    bits, state = bits_in[:, :rows], state_in[:, :rows]
+    cfg_valid = torch.arange(rows, device=dev) < count[:, None]
+    ok, new_state = step_fn(state[:, :, None, :], f_row[:, None, :],
+                            v_row[:, None])
+    already = ((bits[:, :, None, :] & slot_bit) != 0).any(-1)
+    fresh = ok & act[:, None, :] & ~already & cfg_valid[..., None]
+    # Saturation: distinct slot bits, so their sum is their OR.
+    sat = ((fresh & pure_row[:, None, :]).to(torch.int64).unsqueeze(-1)
+           * slot_bit).sum(2)
+    bits = torch.where(cfg_valid[..., None], bits | sat, bits)
+    pred = pred_row[:, None]
+    chain_ok = ((bits[:, :, None, :] & pred) == pred).all(-1)
+    legal = fresh & ~pure_row[:, None, :] & chain_ok
+    new_bits = bits[:, :, None, :] | slot_bit
+    cand_bits = torch.cat([bits, new_bits.reshape(K, rows * W, nw)], 1)
+    cand_state = torch.cat(
+        [state, new_state.to(torch.int64).reshape(K, rows * W, S)], 1)
+    cand_valid = torch.cat([cfg_valid, legal.reshape(K, rows * W)], 1)
+    b2, s2, n2, o2 = _dedup(cand_bits, cand_state, cand_valid, cap)
+    # Fixpoint test against the pass input (see the reference).
+    changed = (b2 != bits_in).flatten(1).any(1) \
+        | (s2 != state_in).flatten(1).any(1) | (n2 != count)
+    return b2, s2, n2, changed, o2
+
+
+def _filter_pass_mw(bits, state, count, s, *, cap: int, W: int,
+                    slot_bit, rows: int):
+    """Return-event filter of each key's configs for its returning slot
+    ``s`` [K]: keep the configs holding the slot's bit, then clear it.
+    Returns (bits, state, count, dead), each per key. ``slot_bit`` and
+    ``rows`` as in :func:`_closure_pass_mw`."""
+    dev = bits.device
+    bits, state = bits[:, :rows], state[:, :rows]
+    s_mask = slot_bit[s.clamp(0, W - 1)][:, None, :]      # [K, 1, NW]
+    cfg_valid = torch.arange(rows, device=dev) < count[:, None]
+    keep = cfg_valid & ((bits & s_mask) != 0).any(-1)
+    bits, state, count, _ = _dedup(bits & ~s_mask, state, keep, cap)
+    return bits, state, count, count == 0
+
+
+def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
+                  bits, state, count, *, cap: int, step_fn):
+    """The multiword branch of :func:`jepsen_tpu.lin.bfs._search_chunk`
+    for K keys at once: key k processes up to ``n_rows[k]`` return events
+    of its tables (``ret_slot`` [K, C], ``active``/``slot_f``/``pure``
+    [K, C, W], ``slot_v`` [K, C, W, VW], ``pred_bit`` [K, C, W, NW]) from
+    its carried frontier (``bits`` int64[K, cap, NW] u32 words, ``state``
+    int64[K, cap, S], ``count`` [K]), all int64 or bool tensors on one
+    device. Each closure keeps the reference's ceiling ``4 W + 16``
+    passes; reaching it with changes pending sets the key's overflow.
+    Returns (bits, state, count, rows_done, dead, overflow), each per
+    key; rows_done counts the dead or overflowing row itself.
+
+    Each pass expands only the prefix of the frontier arrays that holds
+    every key's live configs (a power of two from 16 up to ``cap``, from
+    the largest count, which rides the pass's one fetch); the rest are
+    invalid configs, so the results are those of the whole arrays."""
+    K, C, W = active.shape
+    nw = bits.shape[2]
+    dev = bits.device
+    it_max = 4 * W + 16
+    slot_bit = _slot_bits(W, nw, dev)
+    lane = torch.arange(K, device=dev)
+    zeros = torch.zeros(K, dtype=torch.int64, device=dev)
+    r, dead, ovf = zeros, zeros.bool(), zeros.bool()
+    n_rows = torch.as_tensor(n_rows, dtype=torch.int64, device=dev) \
+        .expand(K)
+
+    def keep(mask, new, old):
+        return torch.where(mask.view((K,) + (1,) * (old.dim() - 1)), new,
+                           old)
+
+    def prefix(n: int) -> int:
+        return min(cap, 1 << max(4, (n - 1).bit_length()))
+
+    while True:
+        run = (r < n_rows) & ~dead & ~ovf
+        any_run, most = torch.stack(
+            [run.any().long(), count.max()]).tolist()   # one fetch a row
+        if not any_run:
+            break
+        rr = r.clamp(max=C - 1)
+        row = (active[lane, rr], slot_f[lane, rr], slot_v[lane, rr],
+               pure[lane, rr], pred_bit[lane, rr])
+        c_bits, c_state, c_count, c_ovf = bits, state, count, ovf
+        it = zeros
+        go = run
+        while True:                             # do-while to fixpoint
+            b2, s2, n2, changed, o2 = _closure_pass_mw(
+                c_bits, c_state, c_count, *row, cap=cap, W=W, nw=nw,
+                step_fn=step_fn, slot_bit=slot_bit, rows=prefix(most))
+            o2 = c_ovf | o2 | ((it + 1 >= it_max) & changed)
+            c_bits = keep(go, b2, c_bits)
+            c_state = keep(go, s2, c_state)
+            c_count = keep(go, n2, c_count)
+            c_ovf = keep(go, o2, c_ovf)
+            it = keep(go, it + 1, it)
+            go = go & changed & ~c_ovf & (it < it_max)
+            any_go, most = torch.stack(
+                [go.any().long(), c_count.max()]).tolist()  # one a pass
+            if not any_go:
+                break
+        fb, fs, fc, fd = _filter_pass_mw(c_bits, c_state, c_count,
+                                         ret_slot[lane, rr], cap=cap, W=W,
+                                         slot_bit=slot_bit,
+                                         rows=prefix(most))
+        bits = keep(run, fb, bits)
+        state = keep(run, fs, state)
+        count = keep(run, fc, count)
+        dead = keep(run, fd, dead)
+        ovf = keep(run, c_ovf, ovf)
+        r = keep(run, r + 1, r)
+    return bits, state, count, r, dead, ovf

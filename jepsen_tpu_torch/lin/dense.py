@@ -23,6 +23,8 @@ counterexample pass replays just the failing tail on the CPU oracle.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -69,16 +71,22 @@ def transition_tables(slot_f, slot_v, active, nil_id, *, ns, step_fn):
     state id, from ``slot_f`` [CH,w], ``slot_v`` [CH,w,VW] and ``active``
     bool[CH,w] on one device. State id ``nil_id`` stands for NIL; ids past
     it map to raw ids and are masked inert, and ``to`` is clipped into
-    [0, ns-1], as :func:`jepsen_tpu.lin.dense.transition_tables` does."""
+    [0, ns-1], as :func:`jepsen_tpu.lin.dense.transition_tables` does.
+
+    With a leading key axis (``slot_f`` [K,CH,w] ...), ``nil_id`` may be
+    an int64 tensor [K], each key's own, as each lane of the XLA twin's
+    vmap has its own; the tables are then [K,CH,w,ns]."""
     dev = slot_f.device
     sid = torch.arange(ns, dtype=torch.int64, device=dev)
-    states = torch.where(sid == nil_id, int(NIL), sid)
-    ok, new = step_fn(states.view(1, 1, ns, 1),
+    nid = torch.as_tensor(nil_id, dtype=torch.int64, device=dev)
+    nid = nid.reshape(nid.shape + (1, 1, 1))          # over [.., CH, w, ns]
+    states = torch.where(sid == nid, int(NIL), sid).unsqueeze(-1)
+    ok, new = step_fn(states,
                       slot_f.to(torch.int64).unsqueeze(-1),
-                      slot_v.to(torch.int64).unsqueeze(2))
+                      slot_v.to(torch.int64).unsqueeze(-2))
     to = new[..., 0]
-    to = torch.where(to == int(NIL), nil_id, to).clamp(0, ns - 1)
-    ok = ok & active.unsqueeze(-1) & (sid <= nil_id)
+    to = torch.where(to == int(NIL), nid, to).clamp(0, ns - 1)
+    ok = ok & active.unsqueeze(-1) & (sid <= nid)
     return ok, to
 
 
@@ -107,6 +115,55 @@ def chunk_inputs(p: PackedHistory, base: int, n: int, w: int, ns: int,
         step_fn=p.kernel.step)
     ret = torch.from_numpy(np.ascontiguousarray(p.ret_slot[sl])).to(device)
     return masks, ret
+
+
+class BatchInputs(NamedTuple):
+    """The dense kernel's inputs for K keys (:func:`batch_inputs`), on one
+    device: ``F`` raw int32[K, 2**w] entry bitmaps (``1 << init_id`` in
+    word 0), ``n_rows`` int32[K] (each key's R), ``masks`` raw
+    int32[K, r_pad, w, ns] and ``ret_slot`` int32[K, r_pad]."""
+
+    F: torch.Tensor
+    n_rows: torch.Tensor
+    masks: torch.Tensor
+    ret_slot: torch.Tensor
+
+
+def batch_inputs(packed: list, plans: list, w: int, ns: int, r_pad: int,
+                 device) -> BatchInputs:
+    """Every key's whole history as one chunk at the group's bitmap width
+    ``w`` and state count ``ns`` (its maxima, so that each key's bitmap is
+    the one the XLA twin's vmap carries), rows padded to ``r_pad``. The
+    host stacks the keys' tables once; the transition masks of all keys
+    come from one torch pass on ``device``, each key with its own
+    ``nil_id`` (``plans[k]`` is :func:`plan` of ``packed[k]``)."""
+    K = len(packed)
+    vw = packed[0].slot_v.shape[2]
+    slot_f = np.zeros((K, r_pad, w), np.int32)
+    slot_v = np.zeros((K, r_pad, w, vw), np.int32)
+    active = np.zeros((K, r_pad, w), bool)
+    ret_slot = np.zeros((K, r_pad), np.int32)
+    F0 = np.zeros((K, 1 << w), np.uint32)
+    n_rows = np.zeros(K, np.int32)
+    nil_ids = np.zeros(K, np.int64)
+    for k, (p, (_, _, nil_id, init_id)) in enumerate(zip(packed, plans)):
+        R, W = p.active.shape
+        slot_f[k, :R, :W] = p.slot_f
+        slot_v[k, :R, :W] = p.slot_v
+        active[k, :R, :W] = p.active
+        ret_slot[k, :R] = p.ret_slot
+        F0[k, 0] = np.uint32(1) << np.uint32(init_id)
+        n_rows[k] = R
+        nil_ids[k] = nil_id
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    masks = dense_cuda.transition_masks(
+        put(slot_f), put(slot_v), put(active), put(nil_ids), ns=ns,
+        step_fn=packed[0].kernel.step)
+    return BatchInputs(_u32.bitmap_from_numpy(F0, device), put(n_rows),
+                       masks.contiguous(), put(ret_slot))
 
 
 def check_packed(p: PackedHistory, chunk: int = CHUNK, cancel=None,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from jepsen_tpu_torch import _build, _u32
@@ -30,8 +31,12 @@ MAX_NS = 32
 SHARED_MAX_W = 15
 
 # Kernel launches since import (or since a caller reset it): one per
-# launch of the CUDA kernel, none for the plain version.
+# launch of the CUDA kernel, none for the plain version. BATCH_LAUNCHES
+# counts the launches over a grid of keys (:func:`dense_chunk_batch`).
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
+# rows_done of a batched key whose row count lies outside its tables.
+BAD_ROWS = -1
 
 _lib = None
 
@@ -115,6 +120,12 @@ def _load():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.dense_chunk_batch_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.dense_chunk_shared_max_w.argtypes = []
         lib.dense_chunk_shared_max_w.restype = ctypes.c_int
@@ -224,3 +235,99 @@ def dense_chunk_plain(F, n_rows: int, masks, ret_slot, *, w: int,
     state = torch.tensor([rows_done, dead, trunc, passes, sweeps],
                          dtype=torch.int32, device=dev)
     return ChunkResult(_u32.narrow(Fw), state)
+
+
+def _check_batch_args(F, n_rows, masks, ret_slot, w, ns):
+    if not 1 <= w <= MAX_W or not 1 <= ns <= MAX_NS:
+        raise ValueError(f"dense_chunk_batch takes 1 <= w <= {MAX_W} and "
+                         f"1 <= ns <= {MAX_NS}, got w={w} ns={ns}")
+    if F.dtype != torch.int32 or F.dim() != 2 or F.shape[1] != 1 << w \
+            or F.shape[0] < 1:
+        raise ValueError(f"F must be int32[keys, {1 << w}], got "
+                         f"{F.dtype}{list(F.shape)}")
+    keys = F.shape[0]
+    if masks.dtype != torch.int32 or masks.dim() != 4 \
+            or masks.shape[0] != keys or tuple(masks.shape[2:]) != (w, ns):
+        raise ValueError(f"masks must be int32[{keys}, rows, {w}, {ns}], "
+                         f"got {masks.dtype}{list(masks.shape)}")
+    if ret_slot.dtype != torch.int32 \
+            or tuple(ret_slot.shape) != tuple(masks.shape[:2]):
+        raise ValueError(f"ret_slot must be int32{list(masks.shape[:2])}, "
+                         f"got {ret_slot.dtype}{list(ret_slot.shape)}")
+    if n_rows.dtype != torch.int32 or tuple(n_rows.shape) != (keys,):
+        raise ValueError(f"n_rows must be int32[{keys}], got "
+                         f"{n_rows.dtype}{list(n_rows.shape)}")
+    if not F.device == masks.device == ret_slot.device == n_rows.device:
+        raise ValueError("F, n_rows, masks and ret_slot must share a device")
+
+
+def dense_chunk_batch(F, n_rows, masks, ret_slot, *, w: int,
+                      ns: int) -> ChunkResult:
+    """:func:`dense_chunk` for K independent keys at once: key k advances
+    ``F[k]`` (raw int32[keys, 2**w]) through its first ``n_rows[k]``
+    (int32[keys]) return events of ``masks[k]`` (raw int32[keys, r_pad,
+    w, ns]) and ``ret_slot[k]`` (int32[keys, r_pad]), and stops at its
+    own dead row or pass ceiling. Returns ``F`` [keys, 2**w] and
+    ``state`` int32[keys, 5], row k as :class:`ChunkResult` describes.
+    A key whose row count lies outside [0, r_pad] runs no row: its bitmap
+    passes through and its state row reads rows_done = -1
+    (:data:`BAD_ROWS`), which :func:`check_batch_state` rejects once the
+    host holds the state. CUDA tensors launch the kernel once, one block a
+    key, on the current stream (no sync); CPU tensors run
+    :func:`dense_chunk_batch_plain`, which answers the same."""
+    global BATCH_LAUNCHES
+    _check_batch_args(F, n_rows, masks, ret_slot, w, ns)
+    if F.device.type == "cpu":
+        return dense_chunk_batch_plain(F, n_rows, masks, ret_slot, w=w,
+                                       ns=ns)
+    if F.device.type != "cuda":
+        raise ValueError(f"dense_chunk_batch runs on cuda or cpu, not "
+                         f"{F.device}")
+    if not (F.is_contiguous() and masks.is_contiguous()
+            and ret_slot.is_contiguous() and n_rows.is_contiguous()):
+        raise ValueError("dense_chunk_batch needs contiguous tensors")
+    lib = _load()
+    keys, r_pad = ret_slot.shape
+    F_out = torch.empty_like(F)
+    state = torch.empty((keys, 5), dtype=torch.int32, device=F.device)
+    with torch.cuda.device(F.device):
+        stream = torch.cuda.current_stream(F.device).cuda_stream
+        rc = lib.dense_chunk_batch_launch(
+            F.data_ptr(), F_out.data_ptr(), masks.data_ptr(),
+            ret_slot.data_ptr(), n_rows.data_ptr(), int(keys), int(r_pad),
+            int(w), int(ns), state.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_chunk_batch kernel launch failed: CUDA "
+                           f"error {rc} (keys={keys}, w={w}, ns={ns}, "
+                           f"r_pad={r_pad})")
+    BATCH_LAUNCHES += 1
+    return ChunkResult(F_out, state)
+
+
+def dense_chunk_batch_plain(F, n_rows, masks, ret_slot, *, w: int,
+                            ns: int) -> ChunkResult:
+    """:func:`dense_chunk_batch` in plain torch ops, on any device: one
+    :func:`dense_chunk_plain` per key, as the XLA twin's vmap runs each
+    lane on its own. A row count outside [0, r_pad] runs no row and reads
+    rows_done = :data:`BAD_ROWS`, as on the card."""
+    _check_batch_args(F, n_rows, masks, ret_slot, w, ns)
+    r_pad = ret_slot.shape[1]
+    outs = []
+    for k, n in enumerate(n_rows.tolist()):
+        bad = not 0 <= n <= r_pad
+        o = dense_chunk_plain(F[k], 0 if bad else n, masks[k], ret_slot[k],
+                              w=w, ns=ns)
+        if bad:
+            o.state[0] = BAD_ROWS
+        outs.append(o)
+    return ChunkResult(torch.stack([o.F for o in outs]),
+                       torch.stack([o.state for o in outs]))
+
+
+def check_batch_state(state) -> None:
+    """Raise ValueError when a key of a batched launch's ``state`` (int
+    [keys, 5], on the host) was given a row count outside its tables."""
+    bad = [k for k, r in enumerate(np.asarray(state)[:, 0]) if r == BAD_ROWS]
+    if bad:
+        raise ValueError(f"dense_chunk_batch: keys {bad[:8]} had a row count "
+                         f"outside [0, r_pad]")
