@@ -87,10 +87,11 @@ raises on a failure:
 12. the pair headline: a 5k-op, concurrency-30 CAS-register history
     (window 29, past one u32 key) through ``checker.linearizable``,
     valid by ``gpu-bfs`` with every pair kernel launched and its known
-    launch and fetch counts, then a timed device check, as in phase 8,
-    which counts ``compact_keys2``'s calls by path (inside the gate all
-    ordered) and records the inputs of a few spike compactions (past the
-    compaction gate);
+    launch and fetch counts, counting ``compact_keys2``'s calls by path
+    (inside the gate all ordered) and recording the inputs of a few
+    spike compactions (past the compaction gate); then a timed device
+    check at 3.5k ops (window 29, still the pair band, which the script
+    asserts), as in phase 8;
 13. a corrupted window-37 history (two-word bitsets) through ``"gpu"``
     and ``"cpu"``, invalid on the same op and dead row, with final
     paths;
@@ -150,6 +151,28 @@ raises on a failure:
     2 corrupted keys) through the multiword sparse batch
     (``gpu-bfs-batch``): verdicts and dead rows the CPU oracle's, final
     frontiers the CPU run's, bit for bit.
+21. the generic packed and multiword bands (``[bands-*]``), each shape
+    through ``checker.linearizable(algorithm="gpu")`` and held to the CPU
+    oracle, with the JAX package's max cap and final frontier size as
+    constants: a mutex of 100k ops at concurrency 10 with up to 16
+    crashes (window 22, the generic band on single keys; config 3's
+    probe shape in ``bench.py``, 5k ops at concurrency 30 with up to 4
+    crashes, has 31 return rows at window 6 and plans dense), with the
+    host's work over its run (CPU time, context switches, GC, load,
+    allocator segments), which must launch ``dedup_keys`` and
+    ``compact_keys`` once a closure pass and once a compacting return
+    filter, counted by size, route and path, then both kernels held
+    against their plain versions on the mutex's own inputs at its most
+    frequent tier and timed there beside one PyTorch call and their
+    bound; a one-word set (40 ops, generic band); a 600-op set of 16 words
+    (the multiword band); a 900-op unique-value unordered queue (15
+    words) and a 100-op FIFO queue (15 words). The mutex, both sets and
+    the unordered queue have a corrupted twin: invalid through ``"gpu"``
+    and ``"cpu"`` on the same op and dead row, with final paths. The
+    multiword shapes report their rows, closure passes and fetches.
+
+``python3 chip_smoke.py --bands`` runs the build and phase 21 alone,
+printing its kernels' entries and the card, and no contract line.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -160,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -343,6 +367,10 @@ SPARSE_FETCHES = 61_995
 # spike cap (overflow: capacity); 5k ops decides. Halving again gives
 # window 28, which is the single-key band.
 PAIR = dict(n_ops=5_000, concurrency=30, seed=42, value_range=5)
+# Phase 12's timed check runs at 3,500 ops (window 29, the pair band;
+# 3,200 ops is window 28, single keys), to keep the script inside its
+# time limit with phase 21.
+PAIR_TIMED = dict(PAIR, n_ops=3_500)
 # Its launch and fetch counts. Its dedups at the spike tiers 524,288 and
 # 1,048,576 (3,932 and 5,428 grouped passes) are inside the dedup gate
 # and launch the kernel: 53,036 + 9,360 dedup_keys2 launches. Its 72
@@ -903,25 +931,47 @@ GATE_S = 5e-4
 
 
 class CallTimer:
-    """Device time of each call of a wrapper while installed. Before a
-    call a spin kernel (``torch.cuda._sleep``) holds the stream, and
-    events around the call start when it ends: the wrapper's host work
-    (allocations, the ctypes call, every launch it enqueues) is done by
-    then, so the events bracket the device's work alone. A call whose
-    host time outlasted its spin is counted in ``unheld``."""
+    """Each call of a wrapper while installed: counted by its first
+    argument's size (``sizes``), the arguments (cloned) of every
+    ``every``-th call at a size kept in ``samples``, up to ``keep`` of
+    them, and timed by ``mode``. "events" (the default), its device time:
+    before a call a spin kernel (``torch.cuda._sleep``) holds the stream,
+    and events around the call start when it ends, so the wrapper's host
+    work (allocations, the ctypes call, every launch it enqueues) is done
+    by then and the events bracket the device's work alone; a call whose
+    host time outlasted its spin is counted in ``unheld``. "wall", its
+    host time up to a synchronise; "count", no time (the run keeps its
+    pace)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, mode: str = "events", keep: int = 0,
+                 every: int = 1):
         self.module, self.name = module, name
+        self.mode, self.keep, self.every = mode, keep, every
         self.orig = getattr(module, name)
-        self.calls = []
+        self.calls, self.sizes, self.samples = [], {}, {}
 
     def __enter__(self):
         import torch
 
         def timed(*a, **k):
+            n = a[0].numel() if isinstance(a[0], torch.Tensor) else None
+            i = self.sizes.get(n, 0)
+            self.sizes[n] = i + 1
+            got = self.samples.setdefault(n, [])
+            if len(got) < self.keep and i % self.every == 0:
+                got.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                                 else x for x in a))
+            if self.mode == "count":
+                return self.orig(*a, **k)
+            t0 = time.perf_counter()
+            if self.mode == "wall":
+                out = self.orig(*a, **k)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.calls.append(time.perf_counter() - t0)
+                return out
             g, s, e = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
-            t0 = time.perf_counter()
             g.record()
             torch.cuda._sleep(int(GATE_S * SM_HZ))
             s.record()
@@ -936,7 +986,12 @@ class CallTimer:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
 
+    def n_calls(self) -> int:
+        return sum(self.sizes.values())
+
     def total_ms(self) -> float:
+        if self.mode == "wall":
+            return sum(self.calls) * 1e3
         return sum(s.elapsed_time(e) for _, _, s, e in self.calls)
 
     def unheld(self) -> int:
@@ -1055,6 +1110,12 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
             f"({n / t_dev:.0f} ops/s)")
     timed_h = h if timed_h is None else timed_h
     pt = prepare.prepare(model, timed_h)
+    # The timed history must run the headline's band: its kernels' times
+    # stand under their names.
+    if bfs.key_band(pt) != bfs.key_band(p) or \
+            bfs._Engine(pt, dev).pair != bfs._Engine(p, dev).pair:
+        raise AssertionError(f"[{tag}-headline] the timed history (window "
+                             f"{pt.window}) left the headline's band")
     mods = {"psort": psort, "psort_fused": psort_fused}
     timers = [CallTimer(mods[mod], fn) for mod, fn in kernels.values()]
     for t in (*timers, *spies):
@@ -1069,6 +1130,10 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
             t.__exit__()
     if rt["valid?"] is not True:
         raise AssertionError(f"headline timed re-check said {rt['valid?']!r}")
+    idle = [k for k, t in zip(kernels, timers) if not t.calls]
+    if idle:
+        raise AssertionError(f"[{tag}-headline] the timed check never "
+                             f"called {idle}")
     per_kernel = dict(zip(kernels, (t.total_ms() for t in timers)))
     log(f"[{tag}-headline] timed run at "
         f"{len(timed_h) // 2} ops (R={pt.R}, "
@@ -1757,7 +1822,7 @@ def sparse_phases(dev) -> list:
     eng = bfs._Engine(p, dev)
     log(f"[sparse] ops={SPARSE['n_ops']} window={p.window} R={p.R} "
         f"b={eng.b} M={eng.M} pair={eng.pair}")
-    if eng.pair or bfs.band_error(p) is not None:
+    if eng.pair or bfs.key_band(p) != "compact":
         raise AssertionError("the sparse headline left the single-key band")
 
     # 7. kernels vs plain versions on the card
@@ -1820,7 +1885,7 @@ def pair_phases(dev) -> list:
     eng = bfs._Engine(p, dev)
     log(f"[pair] ops={PAIR['n_ops']} concurrency={PAIR['concurrency']} "
         f"window={p.window} R={p.R} b={eng.b} M={eng.M} pair={eng.pair}")
-    if not eng.pair or bfs.band_error(p) is not None:
+    if not eng.pair or bfs.key_band(p) != "compact":
         raise AssertionError("the pair headline left the pair-key band")
 
     # 11. the pair kernels vs their plain versions on the card
@@ -1836,18 +1901,20 @@ def pair_phases(dev) -> list:
     kernels = {"dedup_keys2": ("psort", "dedup_keys2"),
                "compact_keys2": ("psort", "compact_keys2"),
                "fixpoint_pair": ("psort_fused", "fixpoint_flags")}
-    # Its run through the entry point is its clean run, as in phase 8;
-    # its timed run counts compact_keys2's paths and records spike
-    # compactions.
+    # Its run through the entry point is its clean run, as in phase 8; it
+    # counts compact_keys2's calls by path and records spike compactions
+    # for phase 14.
     spy = CompactSpy(8)
-    r, launches, per_kernel = headline(dev, model, h, kernels, "pair",
-                                       clean_check=False, spies=(spy,))
+    r, launches, per_kernel = headline(
+        dev, model, h, kernels, "pair",
+        timed_h=synth.generate_register_history(**PAIR_TIMED),
+        clean_check=False, run_spies=(spy,))
     fetches = r["engine-stats"]["fetches"]
     if launches != PAIR_LAUNCHES or fetches != PAIR_FETCHES:
         raise AssertionError(f"pair headline: launches {launches} fetches "
                              f"{fetches}, expected {PAIR_LAUNCHES} and "
                              f"{PAIR_FETCHES}")
-    compact_paths = spy.check_ordered("pair-headline timed run",
+    compact_paths = spy.check_ordered("pair-headline",
                                       psort.COMPACT2_ONE_MAX_N)
     log(f"[pair-headline] {len(spy.spikes)} spike compactions recorded")
 
@@ -1855,7 +1922,7 @@ def pair_phases(dev) -> list:
     # counterexample against the CPU oracle
     hw = synth.generate_register_history(**WIDE_PAIR)
     pc = counterexample(dev, model, hw, WIDE_PAIR_CORRUPT_SEED, "wide-pair")
-    if pc.window <= 32 or bfs.band_error(pc) is not None:
+    if pc.window <= 32 or bfs.key_band(pc) != "compact":
         raise AssertionError(f"the wide pair history has window "
                              f"{pc.window}, not a pair window past 32")
 
@@ -2497,7 +2564,7 @@ def crashdom_phases(dev) -> tuple:
             f"frontiers of rows 0..{len(fronts) - 1} (counts up to "
             f"{max(f[3] for f in fronts)}) in {time.perf_counter() - t0:.2f}s")
         if eng.pair != pair or not eng.crash_dom or \
-                bfs.band_error(p) is not None:
+                bfs.key_band(p) != "compact":
             raise AssertionError("a crash-dom headline left its band")
         hists[pair], engines[pair] = h, (eng, fronts)
 
@@ -2936,9 +3003,311 @@ def batch_phases(dev, smi: str) -> list:
                  "lifted_e2e_s")}}]
 
 
-def main(device: str = "cuda") -> int:
+# --- the generic packed and multiword bands (phase 21) ----------------------
+#
+# name: (synth generator, its arguments, model, band, (max-cap,
+# final-frontier-size)). The last pair is what the JAX package's
+# bfs.check_packed gives on the same history (on the CPU;
+# tests/test_torch_bands.py's slow cases hold the port to it).
+BANDS = {
+    "mutex": ("generate_mutex_history",
+              dict(n_ops=100_000, concurrency=10, seed=7, crash_prob=0.01,
+                   max_crashes=16), "mutex", "generic", (256, 5)),
+    "set-word": ("generate_set_history",
+                 dict(n_ops=40, concurrency=3, seed=7), "set_model",
+                 "generic", (256, 1)),
+    "set-wide": ("generate_set_history",
+                 dict(n_ops=600, concurrency=10, seed=7), "set_model",
+                 "multiword", (2048, 1)),
+    "queue": ("generate_queue_history",
+              dict(n_ops=900, concurrency=10, seed=7, fifo=False),
+              "unordered_queue", "multiword", (2048, 1)),
+    "fifo": ("generate_queue_history", dict(n_ops=100, concurrency=3, seed=7),
+             "fifo_queue", "multiword", (16384, 3)),
+}
+# The shapes with a corrupted twin (band_twin), corrupted in their first
+# events so that the explain replay spans few rows.
+BANDS_CORRUPT = ("mutex", "set-word", "set-wide", "queue")
+BANDS_CORRUPT_EVENTS = 60
+# Dedup inputs recorded at the mutex's most frequent tier (every
+# BANDS_SAMPLE_EVERY-th call at a size, up to BANDS_SAMPLES), each held
+# against the plain version on the card.
+BANDS_SAMPLES = 8
+BANDS_SAMPLE_EVERY = 4001
+
+
+def band_twin(name: str, h):
+    """The corrupted twin of a phase-21 history, invalid for certain and
+    early: for the mutex, a new process acquires the lock right after the
+    first ok acquire that precedes every crash (the lock is held until
+    its holder's release is invoked, later); for a set, an ok read in the
+    first events misses its last element; for the queue, an ok dequeue in
+    the first events of a value never enqueued."""
+    import random
+
+    from jepsen_tpu_torch.history import History, index_history, invoke_op, \
+        ok_op
+
+    h = list(h)
+    lim = max(len(h) // 20, BANDS_CORRUPT_EVENTS)
+    if name == "mutex":
+        crash = next((i for i, o in enumerate(h) if o.type == "info"), len(h))
+        i = next(i for i, o in enumerate(h[:crash])
+                 if o.type == "ok" and o.f == "acquire")
+        h[i + 1:i + 1] = [invoke_op(10 ** 6, "acquire", None),
+                          ok_op(10 ** 6, "acquire", None)]
+        return index_history(History(h))
+    if name.startswith("set"):
+        pos = [i for i, o in enumerate(h[:lim])
+               if o.type == "ok" and o.f == "read" and o.value]
+        change = None
+    else:
+        pos = [i for i, o in enumerate(h[:lim])
+               if o.type == "ok" and o.f == "dequeue"]
+        change = {"value": 10 ** 6}
+    i = random.Random(11).choice(pos)
+    h[i] = h[i].replace(**(change or {"value": list(h[i].value)[:-1]}))
+    return index_history(History(h))
+
+
+@contextlib.contextmanager
+def host_meter():
+    """What the host did over a block, for telling a slow host from more
+    work: wall and process CPU seconds, involuntary context switches, the
+    garbage collector's runs and seconds, and before the block the load
+    average, the live Python objects and the CUDA allocator's segments
+    and reserved bytes. Yields the dict it fills at the block's end."""
+    import gc
+    import resource
+
+    import torch
+
+    out = {"load_1min": round(os.getloadavg()[0], 2),
+           "py_objects": len(gc.get_objects())}
+    if torch.cuda.is_available():
+        ms = torch.cuda.memory_stats()
+        out["cuda_segments"] = ms.get("segment.all.current", 0)
+        out["cuda_reserved_mib"] = round(
+            torch.cuda.memory_reserved() / 2**20, 1)
+    gc_t = {"runs": [0, 0, 0], "s": 0.0, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t["t0"] = time.perf_counter()
+        else:
+            gc_t["s"] += time.perf_counter() - gc_t["t0"]
+            gc_t["runs"][info["generation"]] += 1
+
+    ru0 = resource.getrusage(resource.RUSAGE_SELF)
+    w0, c0 = time.perf_counter(), time.process_time()
+    gc.callbacks.append(on_gc)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(on_gc)
+        ru1 = resource.getrusage(resource.RUSAGE_SELF)
+        out.update(wall_s=round(time.perf_counter() - w0, 3),
+                   cpu_s=round(time.process_time() - c0, 3),
+                   invol_ctx=ru1.ru_nivcsw - ru0.ru_nivcsw,
+                   gc_runs=gc_t["runs"], gc_s=round(gc_t["s"], 3))
+
+
+def bands_mutex_kernels(dedup_spy, compact_spy, launches) -> dict:
+    """Phase 21's kernels on the mutex's own inputs: every recorded dedup
+    input at the most frequent candidate size and the first compaction at
+    the most frequent cap, kernel against plain version bit for bit; then
+    each one's time beside its plain version's, one PyTorch call's and its
+    bound. Returns the two kernels' entries for the kernels line."""
+    import torch
+
+    from jepsen_tpu_torch import _u32
+    from jepsen_tpu_torch.lin import psort
+
+    n_d = max((n for n in dedup_spy.sizes if n is not None),
+              key=dedup_spy.sizes.get)
+    err, out = 0, {}
+    for cand, valid, cap in dedup_spy.samples[n_d]:
+        same, e = same_outputs(psort.dedup_keys(cand, valid, cap),
+                               psort.dedup_keys_plain(cand, valid, cap))
+        err = max(err, e)
+        if not same:
+            raise AssertionError(f"[bands] dedup_keys != plain on the "
+                                 f"mutex's candidates (n={n_d}, cap={cap})")
+    cand, valid, cap = dedup_spy.samples[n_d][-1]
+    key = _u32.widen(cand) | ((~valid).to(torch.int64) << 31)
+    live = key[valid]
+    digits = sum(int(d.amin() != d.amax()) for d in
+                 ((live >> (8 * i)) & 0xFF for i in range(4))) \
+        if live.numel() else 0
+    bound, by = radix_dedup_bound(n_d, int(valid.sum()), digits, cap, 5, 4)
+    ms = time_chunk(lambda: psort.dedup_keys(cand, valid, cap), 50)
+    plain = time_chunk(lambda: psort.dedup_keys_plain(cand, valid, cap), 20)
+    lib = time_chunk(lambda: torch.unique(key, sorted=True), 50)
+    out["dedup_keys"] = {
+        "launches": launches["dedup_keys"], "n": n_d, "cap": cap,
+        "calls_by_n": dict(sorted(dedup_spy.sizes.items())),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+        "bound_ms": bound, "bound_by": by, "digits": digits,
+        "inputs_checked": len(dedup_spy.samples[n_d])}
+    log(f"[bands-mutex-time] dedup_keys n={n_d} cap={cap} "
+        f"({dedup_spy.sizes[n_d]} calls at this size, {int(valid.sum())} "
+        f"candidates valid, {len(dedup_spy.samples[n_d])} inputs bit-exact "
+        f"vs plain): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.unique "
+        f"{lib:.4f} ms, bound {bound:.6f} ms ({by}; {digits} digits vary)")
+
+    by_n = compact_spy.paths()["by_n"]
+    c_n = max(by_n, key=lambda n: sum(by_n[n].values()))
+    keys, c_cap = compact_spy.firsts[c_n]
+    same, e = same_outputs(psort.compact_keys(keys, c_cap),
+                           psort.compact_keys_plain(keys, c_cap))
+    if not same:
+        raise AssertionError(f"[bands] compact_keys != plain on the mutex's "
+                             f"return filter (n={c_n})")
+    bound, by = sort_bound(c_n, c_cap, 4, 4)
+    ms = time_chunk(lambda: psort.compact_keys(keys, c_cap), 50)
+    plain = time_chunk(lambda: psort.compact_keys_plain(keys, c_cap), 20)
+    lib = time_chunk(lambda: torch.sort(_u32.widen(keys)), 50)
+    out["compact_keys"] = {
+        "launches": launches["compact_keys"], "n": c_n, "cap": c_cap,
+        "calls_by_n": by_n, "max_abs_err": e, "ms": ms, "plain_ms": plain,
+        "library_ms": lib, "bound_ms": bound, "bound_by": by,
+        "kept": int((keys != psort.KEY_FILL_RAW).sum())}
+    log(f"[bands-mutex-time] compact_keys n={c_n} ({sum(by_n[c_n].values())}"
+        f" calls at this size, {out['compact_keys']['kept']} kept, bit-exact "
+        f"vs plain): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.sort "
+        f"{lib:.4f} ms, bound {bound:.6f} ms ({by})")
+    return out
+
+
+def bands_phases(dev) -> dict:
+    """Phase 21, the generic packed and multiword bands. Returns the mutex
+    shape's entries for the dedup_keys and compact_keys kernels."""
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import bfs, dense, prepare, psort, synth
+
+    t_phase = time.perf_counter()
+    mutex_out = None
+    for name, (gen, kw, model_name, band, want) in BANDS.items():
+        model = getattr(m, model_name)()
+        h = getattr(synth, gen)(**kw)
+        t0 = time.perf_counter()
+        p = prepare.prepare(model, h)
+        t_prep = time.perf_counter() - t0
+        if bfs.key_band(p) != band or dense.plan(p) is not None:
+            raise AssertionError(f"[bands-{name}] routed to the "
+                                 f"{bfs.key_band(p)} band (dense plan "
+                                 f"{dense.plan(p)}), not the {band} band")
+        spies = [CallTimer(bfs, "check_packed", mode="wall")]
+        if name == "mutex":
+            spies += [CallTimer(psort, "dedup_keys", mode="count",
+                                keep=BANDS_SAMPLES,
+                                every=BANDS_SAMPLE_EVERY),
+                      CallTimer(bfs, "_dedup_keys_sort", mode="count"),
+                      CompactSpy(4)]
+        with contextlib.ExitStack() as stack:
+            for spy in spies:
+                stack.enter_context(spy)
+            host = stack.enter_context(host_meter())
+            reset_launches()
+            t0 = time.perf_counter()
+            r = checker.linearizable(algorithm="gpu", device=dev).check(
+                None, model, h)
+            t_e2e = time.perf_counter() - t0
+            launches = {k: psort.LAUNCHES[k]
+                        for k in ("dedup_keys", "compact_keys")}
+        t0 = time.perf_counter()
+        rc = checker.linearizable(algorithm="cpu").check(None, model, h)
+        t_cpu = time.perf_counter() - t0
+        stats = r.get("engine-stats") or {}
+        log(f"[bands-{name}] {band} band: ops={kw['n_ops']} window="
+            f"{p.window} R={p.R} S={p.state_width} kernel={p.kernel.name} "
+            f"verdict={r['valid?']} analyzer={r.get('analyzer')} backend="
+            f"{r.get('backend')} max-cap={r.get('max-cap')} "
+            f"final-frontier-size={r.get('final-frontier-size')} "
+            f"launches={launches}")
+        t_dev = spies[0].total_ms() / 1e3
+        passes = stats.get("unfused_passes", stats.get("passes", 0))
+        log(f"[bands-{name}] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s device "
+            f"check={t_dev:.3f}s ({t_dev / max(passes, 1) * 1e3:.4f} ms a "
+            f"closure pass) cpu oracle={t_cpu:.3f}s ({rc['valid?']}, "
+            f"{rc.get('analyzer')}) stats={stats}")
+        log(f"[bands-{name}] host during the entry point's run: {host}")
+        if r["valid?"] is not True or r.get("analyzer") != "gpu-bfs" \
+                or rc["valid?"] is not True:
+            raise AssertionError(f"[bands-{name}] gpu {r} cpu "
+                                 f"{rc['valid?']!r}")
+        got = (r.get("max-cap"), r.get("final-frontier-size"))
+        if got != want:
+            raise AssertionError(f"[bands-{name}] (max-cap, final frontier) "
+                                 f"{got}, the JAX package's {want}")
+        if name == "mutex":
+            _, dedup_spy, sort_spy, compact_spy = spies
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"[bands-mutex] launches {launches}")
+            if dev.type == "cuda" and (
+                    launches["dedup_keys"] != stats["unfused_passes"]
+                    - sort_spy.n_calls()
+                    or launches["compact_keys"] != stats["compactions"]):
+                raise AssertionError(
+                    f"[bands-mutex] launches {launches} against "
+                    f"{stats['unfused_passes']} passes "
+                    f"({sort_spy.n_calls()} on the torch.sort "
+                    f"twin) and {stats['compactions']} compactions")
+            log(f"[bands-mutex] dedup_keys calls by n (route kernel): "
+                f"{dict(sorted(dedup_spy.sizes.items()))}; torch.sort twin "
+                f"(past psort.DEDUP_MAX_N): "
+                f"{dict(sorted(sort_spy.sizes.items()))}")
+            compact_spy.check_ordered("bands-mutex", psort.COMPACT_ONE_MAX_N)
+            mutex_out = bands_mutex_kernels(dedup_spy, compact_spy,
+                                            launches)
+        if name in BANDS_CORRUPT:
+            band_counterexample(dev, name, model, h)
+    took = time.perf_counter() - t_phase
+    log(f"[bands] phase 21 in {took:.1f}s")
+    return mutex_out
+
+
+def band_counterexample(dev, name: str, model, h):
+    """A phase-21 shape's corrupted twin through ``"gpu"`` and ``"cpu"``:
+    both invalid on the same op and dead row, final paths from the GPU
+    that the CPU oracle's replay holds."""
+    from jepsen_tpu_torch import checker
+    from jepsen_tpu_torch.lin import prepare
+
+    hc = band_twin(name, h)
+    pc = prepare.prepare(model, hc)
+    t0 = time.perf_counter()
+    rg = checker.linearizable(algorithm="gpu", device=dev).check(
+        None, model, hc)
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = checker.linearizable(algorithm="cpu").check(None, model, hc)
+    t_c = time.perf_counter() - t0
+    log(f"[bands-{name}-counterexample] window={pc.window} R={pc.R} gpu="
+        f"{rg['valid?']} ({rg.get('analyzer')}, {t_g:.2f}s) cpu="
+        f"{rc['valid?']} ({t_c:.2f}s) dead-row gpu={rg.get('dead-row')} "
+        f"cpu={rc.get('dead-row')} op={rg.get('op')} final-paths="
+        f"{len(rg.get('final-paths', []))}")
+    if rg["valid?"] is not False or rc["valid?"] is not False \
+            or rg.get("analyzer") != "gpu-bfs":
+        raise AssertionError(f"[bands-{name}] corrupted twin: gpu "
+                             f"{rg['valid?']!r} ({rg.get('analyzer')}) cpu "
+                             f"{rc['valid?']!r}")
+    if (rg.get("op"), rg.get("dead-row")) != (rc.get("op"),
+                                               rc.get("dead-row")):
+        raise AssertionError(f"[bands-{name}] gpu {rg.get('op')} at "
+                             f"{rg.get('dead-row')}, cpu {rc.get('op')} at "
+                             f"{rc.get('dead-row')}")
+    if not rg.get("final-paths") or "error" in rg:
+        raise AssertionError(f"[bands-{name}] the GPU counterexample has no "
+                             f"final paths: {rg.get('error')}")
+
+
+def main(device: str = "cuda", bands_only: bool = False) -> int:
     """Run every phase on ``device`` ("cpu" only rehearses the control
-    flow with the plain versions in place of the kernels)."""
+    flow with the plain versions in place of the kernels), or with
+    ``bands_only`` the build and phase 21 alone."""
     import torch
 
     if device == "cuda" and not torch.cuda.is_available():
@@ -2972,6 +3341,10 @@ def main(device: str = "cuda") -> int:
     if smem_w != dense_cuda.SHARED_MAX_W:
         raise AssertionError(f"the library's sliced limit w={smem_w} is "
                              "not dense_cuda.SHARED_MAX_W")
+    if bands_only:
+        print(json.dumps({"bands": bands_phases(dev)}), flush=True)
+        print(smi, flush=True)
+        return 0
     for name in ("dense_chunk", "psort", "psort_fused"):
         for line in _build.BUILD_LOG.get(name, {}).get(
                 "ptxas", "").splitlines():
@@ -3152,6 +3525,10 @@ def main(device: str = "cuda") -> int:
     next(k for k in kernels if k["name"] == "compact_keys")[
         "crashdom_headline_paths"] = dom_compact_paths
     kernels += batch_phases(dev, smi)
+    bands = bands_phases(dev)
+    for k in kernels:
+        if k["name"] in bands:
+            k["bands_mutex"] = bands[k["name"]]
     return finish(kernels, smi, kind)
 
 
@@ -3168,4 +3545,6 @@ def finish(kernels, smi: str, kind: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--bands"]):
+        sys.exit("usage: chip_smoke.py [--bands]")
+    sys.exit(main(bands_only=sys.argv[1:] == ["--bands"]))

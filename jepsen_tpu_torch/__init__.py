@@ -1,8 +1,10 @@
 """jepsen_tpu_torch — the linearizability checker on PyTorch and CUDA.
 
-A port of :mod:`jepsen_tpu`'s dense linearizability path to an NVIDIA
-Hopper GPU: history packing, the dense config-space bitmap engine with
-its hand-written CUDA kernel (``csrc/dense_chunk.cu``), the CPU oracle,
+A port of :mod:`jepsen_tpu`'s linearizability checker to an NVIDIA Hopper
+GPU: the register, mutex, set and queue models, history packing, the
+dense config-space bitmap engine with its hand-written CUDA kernel
+(``csrc/dense_chunk.cu``), the sparse frontier engine's bands with theirs
+(``csrc/psort.cu``, ``csrc/psort_fused.cu``), the CPU oracle,
 counterexample replay, the ``linearizable`` checker and its lift to
 independent keys (:mod:`jepsen_tpu_torch.independent`). It imports torch
 and numpy only.

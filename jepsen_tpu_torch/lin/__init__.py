@@ -9,7 +9,8 @@
   :mod:`jepsen_tpu_torch.lin.dense_cuda`'s kernel.
 - :mod:`jepsen_tpu_torch.lin.bfs`     — the sparse frontier engine for
   wider windows (register histories, crash-free or with crashed ops, on
-  single u32 keys or (hi, lo) u32 pairs),
+  single u32 keys or (hi, lo) u32 pairs; other one-word kernels on
+  single keys; multiword states such as sets and queues),
   through :mod:`jepsen_tpu_torch.lin.psort`'s and
   :mod:`jepsen_tpu_torch.lin.psort_fused`'s kernels.
 - :mod:`jepsen_tpu_torch.lin.witness` — counterexamples for device
@@ -84,8 +85,9 @@ def device_check_packed(packed: PackedHistory, cancel=None, device=None,
                         **kw) -> dict:
     """The device search, routed by history shape: the dense bitmap
     engine when window and state count fit its bounds, else the sparse
-    frontier engine, which answers a band it does not take yet with an
-    honest unknown naming it (:func:`jepsen_tpu_torch.lin.bfs.band_error`)."""
+    frontier engine, which answers a history with no step kernel or a
+    window past its bitset with an honest unknown naming why
+    (:func:`jepsen_tpu_torch.lin.bfs.band_error`)."""
     from jepsen_tpu_torch.lin import bfs, dense
 
     known = {"chunk", "cap_schedule", "host_caps", "explain"}

@@ -1,10 +1,21 @@
-"""The sparse frontier engine for wide windows: the register bands.
+"""The sparse frontier engine for wide windows.
 
-The port of the part of :mod:`jepsen_tpu.lin.bfs` that decides
-read-value-match register histories (cas-register, register) past the
-dense engine's windows (<= 20): windows 21-57 with a few interned values,
-the cockroach-class concurrency, crash-free or with crashed ops (the
-crash-dom bands: the partition-nemesis histories of BASELINE config 5).
+The port of :mod:`jepsen_tpu.lin.bfs`: it decides histories past the dense
+engine's bounds (windows 21-64, or more states than its bitmap holds) in
+four bands, chosen by :func:`key_band`:
+
+- the compact register band: read-value-match register histories
+  (cas-register, register) with a few interned values, on single u32
+  keys (window + state bits <= 31) or (hi, lo) u32 pairs (the
+  cockroach-class concurrency), crash-free or with crashed ops (the
+  crash-dom bands: the partition-nemesis histories of BASELINE config 5);
+- the generic packed band: any other one-word packed kernel on single u32
+  keys (a mutex past window 20, BASELINE config 3; a one-word set; a
+  value-rich register), each pass stepping every slot of the window
+  (:func:`_expand_keys`);
+- the multiword band: states wider than one word (sets past 31 elements,
+  the queues) and windows past the key bands, as bitsets of NW u32 words
+  and state vectors (:func:`_search_chunk`, at the end of this module).
 
 A config (linearized-slot bitset B, model state s) is the key
 ``B << b | s`` (state id NIL remapped to ``nil_id``). Where window + b
@@ -24,7 +35,9 @@ Per return event (row):
    :func:`jepsen_tpu_torch.lin.psort_fused.fits` holds, else a host-
    driven chain of :func:`_closure_pass_keys_compact` passes, each one
    :func:`jepsen_tpu_torch.lin.psort.dedup_keys` (pairs:
-   ``dedup_keys2``), grouped by G column groups as in the reference;
+   ``dedup_keys2``), grouped by G column groups as in the reference; the
+   generic band's passes (:func:`_closure_pass_keys`) dedup through
+   ``dedup_keys`` too, ungrouped and never fused;
 2. the return filter: configs must hold the returner's bit, which is
    then dropped; :func:`jepsen_tpu_torch.lin.psort.compact_keys` (pairs:
    ``compact_keys2``) packs the survivors when any config was dropped.
@@ -36,25 +49,24 @@ frontier past the last chunk cap hands off to spike mode
 (:func:`_spike_rows`). The row loop is driven from the host: one
 blocking fetch per row (count, converged, overflow, survivors of the
 filter) picks the next row's tier, where the reference switches tiers on
-the device.
+the device. The multiword band runs the same chunk, escalation and spike
+loops, one row of :func:`_search_chunk` (K = 1) at a time, with the
+reference's memory-bounded spike ladder (:func:`_mw_spike_caps`).
 
-With crashed ops (the crash-dom bands) every closure pass dedups with
-dominance pruning (:func:`_dedup_keys_dom`, pairs :func:`_dedup_keys2_dom`:
-a config that consumed a superset of another's crashed ops and a subset
-of its reads, in the same group, is dropped), the closure is ungrouped
-and never fused, the row tiers stop at :data:`CHUNK_TIER_CAP`, and a row
-that outgrows them runs in the host-row executor (:func:`_host_rows`): one
-row at a time through :data:`HOST_ROW_CAPS`, escalating from the row's
-entry frontier, with the pass budget :func:`_host_it_max` (the source of
-``overflow: budget``).
+With crashed ops the compact band becomes a crash-dom band: every closure
+pass dedups with dominance pruning (:func:`_dedup_keys_dom`, pairs
+:func:`_dedup_keys2_dom`: a config that consumed a superset of another's
+crashed ops and a subset of its reads, in the same group, is dropped),
+the closure is ungrouped and never fused, the row tiers stop at
+:data:`CHUNK_TIER_CAP`, and a row that outgrows them runs in the host-row
+executor (:func:`_host_rows`): one row at a time through
+:data:`HOST_ROW_CAPS`, escalating from the row's entry frontier, with the
+pass budget :func:`_host_it_max` (the source of ``overflow: budget``).
+The generic and multiword bands run crashed ops through their ordinary
+loops, with no dominance.
 
-Left out, each an honest ``unknown`` naming it (:func:`band_error`):
-the generic packed band (mutex), the multiword formulation as a route of
-one history. The multiword engine itself is here, with a leading key
-axis, for the batch of independent keys (:func:`_search_chunk`, at the
-end of this module; :mod:`jepsen_tpu_torch.lin.batched`). Not ported
-either: supervision, checkpoint/resume, the incremental entry, and the
-host-row executor's dispatch amortisations (episode scheduler, K-row
+Not ported: supervision, checkpoint/resume, the incremental entry, and
+the host-row executor's dispatch amortisations (episode scheduler, K-row
 waves) and fault rungs (per-pass and CPU-oracle rows), which change no
 verdict.
 """
@@ -75,6 +87,8 @@ from jepsen_tpu_torch.models.kernels import (F_CAS, F_WRITE, NIL,
                                              packed_state_bound)
 
 # The reference's values, kept until a measurement on the H100 sets them.
+# Chunk cap ladder of the generic packed and multiword bands.
+DEFAULT_CAP_SCHEDULE = (256, 2048, 16384, 131072)
 # Chunk cap ladder of the compact register band: a small first level and
 # the top level the band runs at on the card.
 PACKED_CAP_SCHEDULE = (16384, 131072)
@@ -107,6 +121,10 @@ HOST_ROW_CAPS = (4096, 16384, 65536, 262144, 524288)
 # executor (whose rows are the frontier blowups).
 DOM_ITERS_CHUNK = 2
 DOM_ITERS_HOST = 6
+# The multiword spike ladder's memory budget: the bytes of candidate rows
+# a closure pass may hold (about 3 copies of cap * (W + 1) rows of
+# 1 + NW + S words); the reference's value.
+_MW_SPIKE_BUDGET_BYTES = 3 << 29
 
 KEY_FILL = psort.KEY_FILL
 ANALYZER = "gpu-bfs"
@@ -571,6 +589,60 @@ def _closure_pass_keys_compact(lo_in, hi_in, count, tbl: RowTables, *,
     return l2, None, n2, changed, o2
 
 
+def _expand_keys(keys_in, count, act, f_row, v_row, pure_row, pred_row, *,
+                 cap, b, nil_id, step_fn):
+    """The candidates of one generic packed-band closure pass over single
+    u32 keys (``bits << b | state id``), the generic branch of
+    :func:`jepsen_tpu.lin.bfs._expand_keys`: unpack, step every (config,
+    slot), saturate the carried keys in place with their legal pure slots
+    (expansions pick theirs up when carried), and gate expansion by the
+    canonical chain. ``keys_in`` raw int32[cap]; ``act``/``pure_row``
+    bool[W], ``f_row`` [W], ``v_row`` [W, VW], ``pred_row`` [W] (the
+    slot-space predecessor masks), int64 on the keys' device. Returns
+    (cand raw int32[cap * (1 + W)], cand_valid bool)."""
+    dev = keys_in.device
+    W = act.shape[0]
+    slot_bit = torch.ones(W, dtype=torch.int64, device=dev) \
+        << torch.arange(W, device=dev)
+    cfg_valid = torch.arange(cap, device=dev) < count
+    k = _u32.widen(keys_in)
+    cfg = torch.where(cfg_valid, k, 0)
+    bits1 = cfg >> b
+    sv = cfg & ((1 << b) - 1)
+    state = torch.where(cfg_valid, torch.where(sv == nil_id, int(NIL), sv),
+                        0)
+    ok, new_state = step_fn(state.view(cap, 1, 1), f_row.view(1, W),
+                            v_row.unsqueeze(0))
+    already = (bits1.unsqueeze(1) & slot_bit) != 0
+    fresh = ok & act & ~already & cfg_valid.unsqueeze(1)
+    nsv = new_state[..., 0].to(torch.int64)
+    pns = torch.where(nsv == int(NIL), nil_id, nsv) & _u32.MASK32
+    # Distinct slot bits, so their sum is their OR.
+    sat = ((fresh & pure_row).to(torch.int64) * slot_bit).sum(1)
+    keys = torch.where(cfg_valid, k | (sat << b), k)
+    bits1 = bits1 | sat
+    chain_ok = (bits1.unsqueeze(1) & pred_row) == pred_row
+    legal = fresh & ~pure_row & chain_ok
+    new_keys = (((bits1.unsqueeze(1) | slot_bit) << b) | pns) & _u32.MASK32
+    cand = torch.cat([torch.where(cfg_valid, keys, 0), new_keys.reshape(-1)])
+    cand_valid = torch.cat([cfg_valid, legal.reshape(-1)])
+    return _u32.narrow(cand), cand_valid
+
+
+def _closure_pass_keys(keys_in, count, act, f_row, v_row, pure_row, pred_row,
+                       *, cap, b, nil_id, step_fn):
+    """ONE generic packed-band closure pass: :func:`_expand_keys`'s
+    candidates through :func:`_dedup_keys`, the fixpoint tested against
+    the pass INPUT (the stable set holds a config and its saturated twin).
+    Returns (keys, count, changed, overflow) as tensors."""
+    cand, valid = _expand_keys(keys_in, count, act, f_row, v_row, pure_row,
+                               pred_row, cap=cap, b=b, nil_id=nil_id,
+                               step_fn=step_fn)
+    k2, n2, o2 = _dedup_keys(cand, valid, cap)
+    changed = torch.any(k2 != keys_in) | (n2 != count)
+    return k2, n2, changed, o2
+
+
 def _filter_pass_keys(keys, count: int, s: int, *, cap, b,
                       n_keep: int | None = None):
     """Return-event filter over packed keys: the returner (slot ``s``)
@@ -730,31 +802,41 @@ def _resize(lo: torch.Tensor, hi, cap: int):
 
 
 def band_error(p: PackedHistory) -> str | None:
-    """None when this engine takes the history, else the reason naming
-    the band left out of the port."""
+    """None when this engine takes the history, else the reason: no step
+    kernel, or a window past the device bitset."""
     if p.kernel is None:
         return f"no device kernel for {type(p.model).__name__}"
     if p.window > MAX_DEVICE_WINDOW:
         return (f"concurrency window {p.window} exceeds device bitset "
                 f"width {MAX_DEVICE_WINDOW}")
-    name = p.kernel.name
-    if p.state_width != 1 or name not in PACKED_STATE_KERNELS:
-        return f"multiword band ({name}) not yet ported"
-    rvm = name in READ_VALUE_MATCH_KERNELS
-    b = packed_state_bound(p.kernel, len(p.unintern)).bit_length()
-    if p.window + b > 31 and not (rvm and b <= 6 and p.window + b <= 60):
-        return (f"multiword band (window {p.window} + {b} state bits) not "
-                "yet ported")
-    if not rvm or b > 6:
-        return f"generic packed band ({name}) not yet ported"
     return None
+
+
+def key_band(p: PackedHistory, packed_keys: bool | None = None) -> str:
+    """The band that decides ``p`` (a history :func:`band_error` passes):
+    ``"compact"`` (read-value-match registers with b <= 6 state bits, on
+    single keys to window + b <= 31 and pair keys to 60), ``"generic"``
+    (another one-word packed kernel, on single keys to 31) or
+    ``"multiword"`` (the rest). ``packed_keys=False`` forces the
+    multiword band, as in the reference."""
+    name = p.kernel.name
+    if p.state_width == 1 and name in PACKED_STATE_KERNELS \
+            and packed_keys is not False:
+        b = packed_state_bound(p.kernel, len(p.unintern)).bit_length()
+        rvm = name in READ_VALUE_MATCH_KERNELS and b <= 6
+        if p.window + b <= 31:
+            return "compact" if rvm else "generic"
+        if rvm and p.window + b <= 60:
+            return "compact"
+    return "multiword"
 
 
 class ChunkOut(NamedTuple):
     """A chunk's result. ``rows_done`` counts the dead or overflowing row
     itself; ``pre_*`` are the frontier before the last row run (the spike
     hand-off and its explain snapshot start there). ``hi``/``pre_hi`` are
-    the pair keys' high words, None in the single-key band."""
+    the pair keys' high words, None on single keys; in the multiword band
+    ``lo``/``hi`` are the bits and the states (:class:`_MWEngine`)."""
 
     lo: torch.Tensor
     hi: torch.Tensor | None
@@ -768,10 +850,13 @@ class ChunkOut(NamedTuple):
 
 
 class _Engine:
-    """One history's sparse search state: host tables, their per-chunk
-    device copies, and the row and chunk loops. A frontier is ``lo`` and,
-    in the pair-key band (window + b > 31), ``hi``; ``hi`` is None in the
-    single-key band, as the reference threads ``key_hi``."""
+    """One history's packed-key search state in the compact band: host
+    tables, their per-chunk device copies, and the row and chunk loops
+    (:class:`_GenericEngine` is the generic band's). A frontier is ``lo``
+    and, in the pair-key band (window + b > 31), ``hi``; ``hi`` is None on
+    single keys, as the reference threads ``key_hi``."""
+
+    resize = staticmethod(_resize)
 
     def __init__(self, p: PackedHistory, device):
         self.p = p
@@ -782,13 +867,8 @@ class _Engine:
         self.nw = (p.window + 31) // 32
         self.pair = p.window + self.b > 31
         self.step_fn = p.kernel.step
-        self.pure_h, _ = reduction_bit_tables(p, self.nw)
-        self.exp_h = expansion_tables(p, self.b)
-        self.M = int(self.exp_h[0].shape[-1])
-        # Crashed ops put the history in a crash-dom band: dominance
-        # dedups, in-chunk tiers capped at CHUNK_TIER_CAP, and the host-row
-        # executor past them.
-        self.crash_dom = bool(np.asarray(p.crashed).any())
+        self.pure_h, pred_bit = reduction_bit_tables(p, self.nw)
+        self._init_band(pred_bit)
         self.max_tier = CHUNK_TIER_CAP if self.crash_dom else None
         self._chunk_key = None
         # Work counters: rows run per tier, fused rows, unfused closure
@@ -806,6 +886,23 @@ class _Engine:
         self.host_stats = {"episodes": 0, "rows": 0, "dispatches": 0,
                            "passes": 0, "wasted_passes": 0,
                            "sticky_hits": 0, "sticky_misses": 0}
+
+    def _init_band(self, pred_bit) -> None:
+        """The compact band expands by mutator-compacted columns (M of
+        them). Crashed ops put it in a crash-dom band: dominance dedups,
+        in-chunk tiers capped at CHUNK_TIER_CAP, and the host-row executor
+        past them."""
+        del pred_bit
+        self.exp_h = expansion_tables(self.p, self.b)
+        self.M = int(self.exp_h[0].shape[-1])
+        self.crash_dom = bool(np.asarray(self.p.crashed).any())
+
+    def cap_schedule(self, device) -> tuple:
+        """The default cap schedule. Row tiers make small frontiers cheap
+        at any cap, so on the card the compact band runs top-cap from the
+        start; the CPU keeps a small first level."""
+        return PACKED_CAP_SCHEDULE[-1:] if device.type == "cuda" \
+            else PACKED_CAP_SCHEDULE
 
     def init_keys(self, cap: int):
         """The initial frontier (empty bitset, the initial state) as
@@ -828,21 +925,27 @@ class _Engine:
         return _unpack_frontier_keys2(lo, hi, count, lo.shape[0], self.b,
                                       self.nil_id, self.nw)
 
+    def spike_levels(self, top: int, spike_caps):
+        """The spike capacities past the chunked top cap ``top`` (None
+        when there are none)."""
+        return tuple(sorted(c for c in spike_caps if c > top)) or None
+
     def load_chunk(self, base: int, rows: int) -> None:
         """Device tables for rows [base, base + rows)."""
         if self._chunk_key == (base, rows):
             return
         p, dev = self.p, self.dev
-        sl = [_chunk_slice(t, base, rows) for t in self.exp_h]
         act = _chunk_slice(np.asarray(p.active), base, rows)
         v_row = _chunk_slice(np.asarray(p.slot_v), base, rows)
         pure = _chunk_slice(self.pure_h, base, rows)
-        cols, sats = _fused_row_tables(tuple(sl), act, v_row, pure, W=self.W,
-                                       b=self.b, nil_id=self.nil_id)
+        self.ret = _chunk_slice(np.asarray(p.ret_slot), base, rows).tolist()
 
         def put(a, dtype=np.int64):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
+        sl = [_chunk_slice(t, base, rows) for t in self.exp_h]
+        cols, sats = _fused_row_tables(tuple(sl), act, v_row, pure, W=self.W,
+                                       b=self.b, nil_id=self.nil_id)
         self.cols = _u32.bitmap_from_numpy(cols, dev)
         self.sats = _u32.bitmap_from_numpy(sats, dev)
         (exp_lo, exp_hi, exp_f, exp_v, exp_act, exp_pred_lo, exp_pred_hi,
@@ -852,7 +955,6 @@ class _Engine:
             put(exp_act, bool), put(exp_pred_lo), put(exp_pred_hi),
             put(exp_jit, bool), put(exp_rv_lo), put(exp_rv_hi),
             put(sats[:, 0]), put(sats[:, 1]))
-        self.ret = _chunk_slice(np.asarray(p.ret_slot), base, rows).tolist()
         # The rows' (crash_lo, crash_hi, read_lo, read_hi) key masks.
         self.dom = np.stack(sl[7:11], axis=1).tolist() if self.crash_dom \
             else None
@@ -874,45 +976,18 @@ class _Engine:
         dead, overflow) with host ints and flags."""
         cap = lo.shape[0]
         l_t, h_t = _resize(lo, hi, tier)
-        M = self.M
-        # The crash-dom bands' bound keeps the closure ungrouped.
-        bound = CHUNK_CAND_MAX if self.crash_dom else _GROUP_BOUND
-        Mg = max(1, bound // tier - 1)
-        G = -(-M // Mg) if Mg < M else 1
-        Mg = min(Mg, M)
-        # Convergence needs O(G * window) passes; exhaustion flags
-        # overflow, which retries at the top tier or escalates.
-        it_max = G * (self.W + 4) + 8
         s = self.ret[r]
         st = self.stats
         st["rows"] += 1
         st["tiers"][tier] = st["tiers"].get(tier, 0) + 1
-        # The dominance dedups have no fused fixpoint.
-        if fused and not self.crash_dom \
-                and psort_fused.fits(tier, M, self.b):
-            l_t, h_t, flags = psort_fused.fixpoint_flags(
-                l_t, h_t, count, self.cols[r], self.sats[r], cap=tier,
-                b=self.b, it_max=it_max)
-            bit_lo, bit_hi = _key_bit(self.b + s)
-            held = (l_t & bit_lo) if h_t is None \
-                else (l_t & bit_lo) | (h_t & bit_hi)
-            keep = (torch.arange(tier, device=self.dev) < flags[3]) \
-                & (held != 0)
-            # The row's one blocking fetch: the flags and the survivors
-            # of the return filter.
-            st["fused_rows"] += 1
+        l_t, h_t, cnt, ovf, n_keep = self._closure(l_t, h_t, count, r, tier,
+                                                   fused)
+        if ovf:
+            return lo, hi, cnt, False, True
+        if n_keep is None:
+            # The return filter's fetch (the fused fixpoint's one fetch
+            # carried its survivor count).
             st["fetches"] += 1
-            conv, o2, _, cnt, n_keep = torch.cat(
-                (flags, keep.sum().to(torch.int32).view(1))).tolist()
-            if o2 or not conv:
-                return lo, hi, cnt, False, True
-        else:
-            l_t, h_t, cnt, ovf = self._closure_unfused(
-                l_t, h_t, count, r, tier, G, Mg, it_max)
-            if ovf:
-                return lo, hi, cnt, False, True
-            st["fetches"] += 1
-            n_keep = None
         if h_t is None:
             l_t, count, dead = _filter_pass_keys(l_t, cnt, s, cap=tier,
                                                  b=self.b, n_keep=n_keep)
@@ -924,28 +999,69 @@ class _Engine:
         l_t, h_t = _resize(l_t, h_t, cap)
         return l_t, h_t, count, dead, False
 
+    def _closure(self, lo, hi, count: int, r: int, tier: int, fused: bool):
+        """Row r's closure fixpoint on ``tier`` keys: the fused fixpoint
+        where ``fused`` allows it and it fits (not with the dominance
+        dedups), else the grouped pass chain. Returns (lo, hi, count,
+        overflow, n_keep), ``n_keep`` the return filter's survivors when
+        the fused fixpoint fetched them, else None."""
+        M = self.M
+        # The crash-dom bands' bound keeps the closure ungrouped.
+        bound = CHUNK_CAND_MAX if self.crash_dom else _GROUP_BOUND
+        Mg = max(1, bound // tier - 1)
+        G = -(-M // Mg) if Mg < M else 1
+        Mg = min(Mg, M)
+        # Convergence needs O(G * window) passes; exhaustion flags
+        # overflow, which retries at the top tier or escalates.
+        it_max = G * (self.W + 4) + 8
+        if not (fused and not self.crash_dom
+                and psort_fused.fits(tier, M, self.b)):
+            return (*self._closure_unfused(lo, hi, count, r, tier, G, Mg,
+                                           it_max), None)
+        lo, hi, flags = psort_fused.fixpoint_flags(
+            lo, hi, count, self.cols[r], self.sats[r], cap=tier, b=self.b,
+            it_max=it_max)
+        bit_lo, bit_hi = _key_bit(self.b + self.ret[r])
+        held = (lo & bit_lo) if hi is None \
+            else (lo & bit_lo) | (hi & bit_hi)
+        keep = (torch.arange(tier, device=self.dev) < flags[3]) \
+            & (held != 0)
+        # The row's one blocking fetch: the flags and the survivors of
+        # the return filter.
+        self.stats["fused_rows"] += 1
+        self.stats["fetches"] += 1
+        conv, o2, _, cnt, n_keep = torch.cat(
+            (flags, keep.sum().to(torch.int32).view(1))).tolist()
+        return lo, hi, cnt, bool(o2 or not conv), n_keep
+
+    def _pass_done(self, tier: int, n2, changed, o2):
+        """Count one unfused closure pass and fetch its (count, changed,
+        overflow) flags: the pass's blocking fetch."""
+        n2, changed, o2 = torch.stack(
+            (n2.to(torch.int32), changed.to(torch.int32),
+             o2.to(torch.int32))).tolist()
+        st = self.stats
+        st["unfused_passes"] += 1
+        st["unfused_tiers"][tier] = st["unfused_tiers"].get(tier, 0) + 1
+        st["fetches"] += 1
+        return n2, changed, o2
+
     def _closure_unfused(self, lo, hi, count: int, r: int, tier: int,
                          G: int, Mg: int, it_max: int):
         """The grouped pass chain: columns Mg at a time, ending after G
-        consecutive unchanged passes; one fetch per pass. Returns (lo, hi,
-        count, overflow)."""
+        consecutive unchanged passes; one fetch per pass. Returns (lo,
+        hi, count, overflow)."""
         tbl = self.row_tables(r)
         dom = self.row_dom(r)
-        groups = [tbl.columns(g * Mg, (g + 1) * Mg) for g in range(G)] \
-            if G > 1 else [tbl]
+        groups = [tbl.columns(g * Mg, (g + 1) * Mg)
+                  for g in range(G)] if G > 1 else [tbl]
         g = since = it = 0
         ovf = False
         while since < G and not ovf:
             l2, h2, n2, changed, o2 = _closure_pass_keys_compact(
                 lo, hi, count, groups[g], cap=tier, b=self.b,
                 nil_id=self.nil_id, step_fn=self.step_fn, dom=dom)
-            n2, changed, o2 = torch.stack(
-                (n2.to(torch.int32), changed.to(torch.int32),
-                 o2.to(torch.int32))).tolist()
-            st = self.stats
-            st["unfused_passes"] += 1
-            st["unfused_tiers"][tier] = st["unfused_tiers"].get(tier, 0) + 1
-            st["fetches"] += 1
+            n2, changed, o2 = self._pass_done(tier, n2, changed, o2)
             g = 0 if g + 1 >= G else g + 1
             since = 0 if changed else since + 1
             # Converging exactly at the budget is convergence, not
@@ -1030,6 +1146,63 @@ class _Engine:
                                 *pre)
         return ChunkOut(lo, hi, count, n_rows, False, False, *pre)
 
+    def spike_chunk(self, base: int, n_rows: int, rows: int, lo, hi,
+                    count: int) -> ChunkOut:
+        """A spike mini-chunk: :meth:`chunk` with untiered rows and the
+        unfused pass chain, as in the reference."""
+        return self.chunk(base, n_rows, rows, lo, hi, count,
+                          row_tiers=False)
+
+
+class _GenericEngine(_Engine):
+    """The generic packed band: single u32 keys of any one-word packed
+    kernel outside the compact band. Each closure pass steps every slot
+    of the window (:func:`_closure_pass_keys`, no groups, no fused
+    fixpoint); crashed ops need no dominance and run the ordinary loop."""
+
+    def _init_band(self, pred_bit) -> None:
+        self.pred_h = pred_bit[..., 0]
+        self.M = self.W
+        self.crash_dom = False
+
+    def cap_schedule(self, device) -> tuple:
+        return DEFAULT_CAP_SCHEDULE
+
+    def load_chunk(self, base: int, rows: int) -> None:
+        """Device tables for rows [base, base + rows)."""
+        if self._chunk_key == (base, rows):
+            return
+        p = self.p
+
+        def put(a, dtype=np.int64):
+            return torch.from_numpy(np.ascontiguousarray(
+                _chunk_slice(a, base, rows), dtype)).to(self.dev)
+
+        self.ret = _chunk_slice(np.asarray(p.ret_slot), base, rows).tolist()
+        self.gen = (put(np.asarray(p.active), bool), put(np.asarray(p.slot_f)),
+                    put(np.asarray(p.slot_v)), put(self.pure_h, bool),
+                    put(self.pred_h))
+        self._chunk_key = (base, rows)
+
+    def _closure(self, lo, hi, count: int, r: int, tier: int, fused: bool):
+        """Row r's closure fixpoint on ``tier`` single keys: passes until
+        one changes nothing, within ``W + 12`` passes; one fetch per
+        pass. Returns (lo, None, count, overflow, None)."""
+        del hi, fused
+        row = tuple(t[r] for t in self.gen)
+        it_max = self.W + 12
+        it, changed, ovf = 0, True, False
+        while changed and not ovf:
+            lo, n2, changed, o2 = _closure_pass_keys(
+                lo, count, *row, cap=tier, b=self.b, nil_id=self.nil_id,
+                step_fn=self.step_fn)
+            count, changed, o2 = self._pass_done(tier, n2, changed, o2)
+            # Converging exactly at the budget is convergence, not
+            # overflow.
+            ovf = bool(o2) or (it + 1 >= it_max and bool(changed))
+            it += 1
+        return lo, None, count, ovf, None
+
 
 def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
                 dropback, cancel, snapshots):
@@ -1044,7 +1217,7 @@ def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
     p = eng.p
     lvl = 0
     top_used = caps[0]
-    lo, hi = _resize(lo, hi, caps[0])
+    lo, hi = eng.resize(lo, hi, caps[0])
     r = r0
     while r < p.R:
         if cancel is not None and cancel.is_set():
@@ -1053,14 +1226,13 @@ def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
             snapshots[:] = [(r, lo, hi, count)]
         m_n = min(SPIKE_CHUNK, p.R - r)
         while True:
-            out = eng.chunk(r, m_n, SPIKE_CHUNK, lo, hi, count,
-                            row_tiers=False)
+            out = eng.spike_chunk(r, m_n, SPIKE_CHUNK, lo, hi, count)
             if not out.ovf:
                 break
             if lvl + 1 >= len(caps):
                 return lo, hi, count, r, False, True, False, top_used
             lvl += 1
-            lo, hi = _resize(lo, hi, caps[lvl])
+            lo, hi = eng.resize(lo, hi, caps[lvl])
             top_used = caps[lvl]
         if out.dead:
             if snapshots is not None and out.rows_done > 1:
@@ -1154,23 +1326,27 @@ def _host_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
 def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                  cancel=None, explain: bool = False,
                  spike_caps=SPIKE_CAP_SCHEDULE, host_caps=HOST_ROW_CAPS,
-                 device=None) -> dict:
+                 packed_keys: bool | None = None, device=None) -> dict:
     """Decide linearizability of a packed history with the sparse engine.
 
     Chunks of ``chunk`` rows; capacity adapts per chunk: an overflow
     re-runs the chunk from its entry frontier at the next cap level of
-    ``cap_schedule`` (default :data:`PACKED_CAP_SCHEDULE`, its top level
-    alone on the card), the frontier past the last level goes to spike
-    mode at ``spike_caps``, and a clean chunk whose frontier shrank drops
-    back a level. In the crash-dom bands the default schedule is one
-    level of TIER_MARGIN x :data:`CHUNK_TIER_CAP`, and a row past the
-    in-chunk tiers goes to the host-row executor (:func:`_host_rows`) at
-    ``host_caps`` instead of spike mode; the result then carries its
-    ``host-stats``. ``cancel`` (threading.Event) stops between chunks.
-    ``explain=True`` keeps the chunk-entry frontier and, on an invalid
-    verdict, replays the failing tail on the CPU oracle for configs and
-    final paths (:mod:`jepsen_tpu_torch.lin.witness`). ``device`` is where
-    the search runs (see :func:`jepsen_tpu_torch.resolve_device`).
+    ``cap_schedule``, the frontier past the last level goes to spike
+    mode at ``spike_caps`` (the multiword band: those within its memory
+    budget, :func:`_mw_spike_caps`), and a clean chunk whose frontier
+    shrank drops back a level. The default schedule is
+    :data:`DEFAULT_CAP_SCHEDULE`, and for the compact band
+    :data:`PACKED_CAP_SCHEDULE` (its top level alone on the card); in the
+    crash-dom bands it is one level of TIER_MARGIN x
+    :data:`CHUNK_TIER_CAP`, and a row past the in-chunk tiers goes to the
+    host-row executor (:func:`_host_rows`) at ``host_caps`` instead of
+    spike mode; the result then carries its ``host-stats``.
+    ``packed_keys=False`` forces the multiword band (:func:`key_band`).
+    ``cancel`` (threading.Event) stops between chunks. ``explain=True``
+    keeps the chunk-entry frontier and, on an invalid verdict, replays
+    the failing tail on the CPU oracle for configs and final paths
+    (:mod:`jepsen_tpu_torch.lin.witness`). ``device`` is where the search
+    runs (see :func:`jepsen_tpu_torch.resolve_device`).
 
     Returns the reference's result shape: ``valid?``, ``dead-row``,
     ``op``, ``final-frontier-size``, ``max-cap``, ``overflow`` (with an
@@ -1181,13 +1357,10 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
         return {"valid?": "unknown", "analyzer": ANALYZER, "error": err}
     if p.R == 0:
         return {"valid?": True, "analyzer": ANALYZER, "configs": []}
-    eng = _Engine(p, device)
-    if cap_schedule is None:
-        # Row tiers make small frontiers cheap at any cap, so on the card
-        # the band runs top-cap from the start; the CPU keeps a small
-        # first level.
-        cap_schedule = PACKED_CAP_SCHEDULE[-1:] if device.type == "cuda" \
-            else PACKED_CAP_SCHEDULE
+    eng = {"compact": _Engine, "generic": _GenericEngine,
+           "multiword": _MWEngine}[key_band(p, packed_keys)](p, device)
+    if cap_schedule is None or cap_schedule is DEFAULT_CAP_SCHEDULE:
+        cap_schedule = eng.cap_schedule(device)
     if eng.max_tier is not None and tuple(cap_schedule) in (
             PACKED_CAP_SCHEDULE, PACKED_CAP_SCHEDULE[-1:]):
         # Counts never pass the tier cap in-chunk, so the chunk cap needs
@@ -1263,8 +1436,9 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                         cancel=cancel, snapshots=snapshots)
                     spike_top = host_caps[-1]
                     break
-                sp_caps = tuple(sorted(c for c in spike_caps
-                                       if c > cap_schedule[-1])) or None
+                # Spike caps strictly exceed the chunked top cap: a
+                # smaller one would drop live configs.
+                sp_caps = eng.spike_levels(cap_schedule[-1], spike_caps)
                 if sp_caps is None:
                     return unknown(overflow="capacity",
                                    error=("frontier exceeded capacity "
@@ -1280,7 +1454,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             level += 1
             cap = cap_schedule[level]
             max_cap_used = max(max_cap_used, cap)
-            lo, hi = _resize(lo, hi, cap)
+            lo, hi = eng.resize(lo, hi, cap)
         if spiked is not None:
             (s_lo, s_hi, s_count, next_r, dead_h, ovf_h, cancelled,
              top_used) = spiked
@@ -1304,7 +1478,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             # below drops back once chunks run clean.
             level = len(cap_schedule) - 1
             cap = cap_schedule[level]
-            (lo, hi), count = _resize(s_lo, s_hi, cap), s_count
+            (lo, hi), count = eng.resize(s_lo, s_hi, cap), s_count
             base = next_r
             continue
         if out.dead:
@@ -1316,7 +1490,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
         while level > 0 and count * 4 <= cap_schedule[level - 1]:
             level -= 1
             cap = cap_schedule[level]
-            lo, hi = _resize(lo, hi, cap)
+            lo, hi = eng.resize(lo, hi, cap)
 
     return with_stats({"valid?": True, "analyzer": ANALYZER,
                        "backend": backend, "configs": [],
@@ -1324,14 +1498,132 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                        "max-cap": max_cap_used, "engine-stats": eng.stats})
 
 
-def _materialize(snapshots, eng: _Engine):
-    """Snapshots as the ``(base, bits[cap, nw], state[cap, 1], count)``
-    numpy tuples the witness replay takes."""
+def _materialize(snapshots, eng):
+    """Snapshots as the ``(base, bits[cap, nw], state[cap, S], count)``
+    numpy tuples the witness replay takes (either engine's frontier,
+    decoded by its ``unpack``)."""
     out = []
     for base, lo, hi, count in snapshots:
         bits, state = eng.unpack(lo, hi, count)
         out.append((base, bits.cpu().numpy(), state.cpu().numpy(), count))
     return out
+
+
+def _mw_spike_caps(W: int, nw: int, S: int, chunk_top: int, spike_caps):
+    """The multiword band's spike ladder: the levels of ``spike_caps``
+    above the chunked top cap whose closure passes fit
+    :data:`_MW_SPIKE_BUDGET_BYTES` (wide windows and fat states get
+    shorter ladders), as :func:`jepsen_tpu.lin.bfs._mw_spike_caps`; None
+    when none do."""
+    per_cand = 4 * 3 * (W + 1) * (1 + nw + S)
+    max_cap = _MW_SPIKE_BUDGET_BYTES // max(per_cand, 1)
+    caps = tuple(sorted(c for c in spike_caps if chunk_top < c <= max_cap))
+    return caps or None
+
+
+class _MWEngine:
+    """The multiword band for one history: the key-axis search
+    (:func:`_search_chunk`) with K = 1, one row a call, behind the same
+    chunk interface as :class:`_Engine`, so that the chunk, escalation and
+    spike loops are shared. A frontier is ``lo`` = bits int64[1, cap, NW]
+    (u32 words) and ``hi`` = state int64[1, cap, S], zero past the
+    count."""
+
+    crash_dom = False
+    max_tier = None
+
+    def __init__(self, p: PackedHistory, device):
+        self.p = p
+        self.dev = device
+        self.W = p.window
+        self.nw = (p.window + 31) // 32
+        self.S = p.state_width
+        self.step_fn = p.kernel.step
+        self.pure_h, self.pred_bit_h = reduction_bit_tables(p, self.nw)
+        self._chunk_key = None
+        # Rows run (one search call each), closure passes, and blocking
+        # device-to-host fetches (one a pass, three a row).
+        self.stats = {"rows": 0, "passes": 0, "fetches": 0}
+        self.host_stats = {"episodes": 0}
+
+    def cap_schedule(self, device) -> tuple:
+        return DEFAULT_CAP_SCHEDULE
+
+    def init_keys(self, cap: int):
+        bits = torch.zeros((1, cap, self.nw), dtype=torch.int64,
+                           device=self.dev)
+        state = torch.zeros((1, cap, self.S), dtype=torch.int64,
+                            device=self.dev)
+        state[0, 0] = torch.as_tensor(np.asarray(self.p.init_state,
+                                                 np.int64), device=self.dev)
+        return bits, state
+
+    def unpack(self, lo, hi, count: int):
+        return lo[0], hi[0]
+
+    @staticmethod
+    def resize(lo, hi, cap: int):
+        """The frontier cut or zero-padded to ``cap`` configs."""
+        def fit(t):
+            if t.shape[1] >= cap:
+                return t[:, :cap]
+            pad = torch.zeros((1, cap - t.shape[1], t.shape[2]),
+                              dtype=t.dtype, device=t.device)
+            return torch.cat([t, pad], 1)
+
+        return fit(lo), fit(hi)
+
+    def spike_levels(self, top: int, spike_caps):
+        return _mw_spike_caps(self.W, self.nw, self.S, top, spike_caps)
+
+    def load_chunk(self, base: int, rows: int) -> None:
+        """Device tables for rows [base, base + rows), key axis 1."""
+        if self._chunk_key == (base, rows):
+            return
+        p, dev = self.p, self.dev
+
+        def put(a, dtype=torch.int64):
+            a = _chunk_slice(np.asarray(a), base, rows)[None]
+            if a.dtype == np.uint32:
+                return _u32.widen(torch.from_numpy(
+                    np.ascontiguousarray(a).view(np.int32)).to(dev))
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        self.tables = (put(p.ret_slot), put(p.active, torch.bool),
+                       put(p.slot_f), put(p.slot_v), put(self.pure_h,
+                                                         torch.bool),
+                       put(self.pred_bit_h))
+        self._chunk_key = (base, rows)
+
+    def chunk(self, base: int, n_rows: int, rows: int, lo, hi,
+              count: int) -> ChunkOut:
+        """Up to ``n_rows`` return events from row ``base`` (tables of
+        ``rows`` rows) at the frontier's capacity, stopping at a death or
+        an overflow (the reference's closure ceiling 4 W + 16 passes
+        included)."""
+        self.load_chunk(base, rows)
+        cap = lo.shape[1]
+        pre = (lo, hi, count)
+        for r in range(n_rows):
+            pre = (lo, hi, count)
+            row = tuple(t[:, r:r + 1] for t in self.tables)
+            b2, s2, c2, _, dead, ovf = _search_chunk(
+                1, *row, lo, hi,
+                torch.tensor([count], dtype=torch.int64, device=self.dev),
+                cap=cap, step_fn=self.step_fn, stats=self.stats)
+            c2, dead, ovf = torch.stack(
+                (c2[0], dead[0].long(), ovf[0].long())).tolist()
+            self.stats["rows"] += 1
+            self.stats["fetches"] += 1
+            if ovf:
+                return ChunkOut(lo, hi, count, r + 1, False, True, *pre)
+            lo, hi, count = b2, s2, c2
+            if dead:
+                return ChunkOut(lo, hi, 0, r + 1, True, False, *pre)
+        return ChunkOut(lo, hi, count, n_rows, False, False, *pre)
+
+    # Spike mini-chunks run the same rows: the band has no row tiers.
+    spike_chunk = chunk
 
 
 # --- the multiword engine, with a leading key axis ---------------------------
@@ -1465,7 +1757,8 @@ def _filter_pass_mw(bits, state, count, s, *, cap: int, W: int,
 
 
 def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
-                  bits, state, count, *, cap: int, step_fn):
+                  bits, state, count, *, cap: int, step_fn,
+                  stats: dict | None = None):
     """The multiword branch of :func:`jepsen_tpu.lin.bfs._search_chunk`
     for K keys at once: key k processes up to ``n_rows[k]`` return events
     of its tables (``ret_slot`` [K, C], ``active``/``slot_f``/``pure``
@@ -1475,7 +1768,9 @@ def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
     device. Each closure keeps the reference's ceiling ``4 W + 16``
     passes; reaching it with changes pending sets the key's overflow.
     Returns (bits, state, count, rows_done, dead, overflow), each per
-    key; rows_done counts the dead or overflowing row itself.
+    key; rows_done counts the dead or overflowing row itself. ``stats``
+    (a dict with ``passes`` and ``fetches``), when given, counts the
+    closure passes and the blocking fetches.
 
     Each pass expands only the prefix of the frontier arrays that holds
     every key's live configs (a power of two from 16 up to ``cap``, from
@@ -1499,10 +1794,12 @@ def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
     def prefix(n: int) -> int:
         return min(cap, 1 << max(4, (n - 1).bit_length()))
 
+    st = {"passes": 0, "fetches": 0} if stats is None else stats
     while True:
         run = (r < n_rows) & ~dead & ~ovf
         any_run, most = torch.stack(
             [run.any().long(), count.max()]).tolist()   # one fetch a row
+        st["fetches"] += 1
         if not any_run:
             break
         rr = r.clamp(max=C - 1)
@@ -1524,6 +1821,8 @@ def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
             go = go & changed & ~c_ovf & (it < it_max)
             any_go, most = torch.stack(
                 [go.any().long(), c_count.max()]).tolist()  # one a pass
+            st["passes"] += 1
+            st["fetches"] += 1
             if not any_go:
                 break
         fb, fs, fc, fd = _filter_pass_mw(c_bits, c_state, c_count,

@@ -14,28 +14,51 @@ frontier only changes at completion events:
 
 It races the device engine in ``competition`` and replays the failing
 tail of a device verdict to build its counterexample
-(:mod:`jepsen_tpu_torch.lin.witness`).
+(:mod:`jepsen_tpu_torch.lin.witness`). A model or history with no packed
+formulation (kernel None) runs :func:`check_generic`, the same search
+over the Python model objects themselves.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.lin.prepare import (PackedHistory, py_step_fn,
                                           reduction_tables)
-from jepsen_tpu_torch.models.kernels import NIL
+from jepsen_tpu_torch.models import is_inconsistent
+from jepsen_tpu_torch.models.kernels import NIL, SET_BITS
 
 MAX_REPORT_CONFIGS = 32
+
+
+def _decode_bitmask(p: PackedHistory, state):
+    """Elements of a SET_BITS-per-word bitmask state, uninterned."""
+    return (p.unintern[w * SET_BITS + b]
+            for w, word in enumerate(state)
+            for b in range(SET_BITS) if (word >> b) & 1)
 
 
 def decode_state(p: PackedHistory, state: tuple) -> Any:
     """Decode a packed model state back to its observable value."""
     if p.kernel is None:
         return state
-    if p.kernel.name in ("cas-register", "register"):
+    name = p.kernel.name
+    if name in ("cas-register", "register"):
         return None if state[0] == int(NIL) else p.unintern[state[0]]
-    if p.kernel.name == "mutex":
+    if name == "mutex":
         return bool(state[0])
+    if name == "set":
+        return frozenset(_decode_bitmask(p, state))
+    if name == "unordered-queue":
+        return tuple(sorted(
+            (p.unintern[i] for i, c in enumerate(state) for _ in range(c)),
+            key=repr))
+    if name == "unordered-unique":
+        return tuple(sorted(_decode_bitmask(p, state), key=repr))
+    if name == "fifo-queue":
+        size = state[0]
+        return tuple(p.unintern[e] for e in state[1:1 + size])
     return state
 
 
@@ -170,26 +193,33 @@ def search_rows(p: PackedHistory, configs, order, r0: int, r1: int,
                                 if order is not None:
                                     order[c2] = path
             frontier = new
-        s = int(p.ret_slot[r])
-        mask = 1 << s
-        survivors = set()
-        # Rebuilt from scratch: after clearing the returned bit a survivor's
-        # key can collide with a closure config that never linearized the
-        # returner, whose path would be a wrong witness.
-        new_order: dict | None = {} if order is not None else None
-        for cfg in seen:
-            bits, st = cfg
-            if bits & mask:
-                c2 = (bits & ~mask, st)
-                if c2 not in survivors:
-                    survivors.add(c2)
-                    if new_order is not None:
-                        new_order[c2] = order[cfg]
+        survivors, new_order = _return_filter(seen, order,
+                                              int(p.ret_slot[r]))
         if not survivors:
             raise Dead(r, seen, order)
         order = new_order
         configs = survivors
     return configs, order
+
+
+def _return_filter(seen, order, s: int):
+    """The return of slot ``s``: the configs of ``seen`` that linearized
+    it, with its bit cleared, and their paths (None when ``order`` is).
+    The order is rebuilt from scratch: after clearing the returned bit a
+    survivor's key can collide with a closure config that never
+    linearized the returner, whose path would be a wrong witness."""
+    mask = 1 << s
+    survivors = set()
+    new_order: dict | None = {} if order is not None else None
+    for cfg in seen:
+        bits, st = cfg
+        if bits & mask:
+            c2 = (bits & ~mask, st)
+            if c2 not in survivors:
+                survivors.add(c2)
+                if new_order is not None:
+                    new_order[c2] = order[cfg]
+    return survivors, new_order
 
 
 def check_packed(p: PackedHistory, witness: bool = False,
@@ -198,11 +228,10 @@ def check_packed(p: PackedHistory, witness: bool = False,
     a representative linearization order and, on an invalid verdict,
     emits final-paths. ``cancel`` (a threading.Event) stops the search
     between rows. The search always runs reduced (see search_rows); the
-    result carries ``"reduced": True``."""
+    result carries ``"reduced": True``. A history with no step kernel
+    runs :func:`check_generic`."""
     if p.kernel is None:
-        return {"valid?": "unknown", "analyzer": "cpu-jit",
-                "error": f"no step kernel for model "
-                         f"{type(p.model).__name__}"}
+        return check_generic(p, witness=witness, cancel=cancel)
 
     init = (0, tuple(int(x) for x in p.init_state))
     configs = {init}
@@ -225,6 +254,63 @@ def check_packed(p: PackedHistory, witness: bool = False,
 
     out = {"valid?": True, "analyzer": "cpu-jit", "reduced": True,
            "configs": _decode_configs(p, configs, None)}
+    if order is not None and configs:
+        some = next(iter(configs))
+        out["witness"] = _witness_path(p, order[some])
+    return out
+
+
+def check_generic(p: PackedHistory, witness: bool = False,
+                  cancel=None) -> dict:
+    """The same search with the Python model objects themselves as states
+    (unreduced): it decides models and histories with no step kernel.
+    ``cancel`` stops it between rows."""
+    init = (0, p.model)
+    configs = {init}
+    order: dict | None = {init: None} if witness else None
+
+    def shim(o) -> Op:
+        return Op("invoke", o.f, o.value, o.process)
+
+    for r in range(p.R):
+        if cancel is not None and cancel.is_set():
+            return {"valid?": "unknown", "analyzer": "cpu-generic",
+                    "error": "cancelled"}
+        act = p.active[r]
+        seen = set(configs)
+        frontier = list(configs)
+        while frontier:
+            new = []
+            for cfg in frontier:
+                bits, st = cfg
+                for j in range(p.window):
+                    if act[j] and not (bits >> j) & 1:
+                        o = p.ops[int(p.slot_op[r, j])]
+                        st2 = st.step(shim(o))
+                        if not is_inconsistent(st2):
+                            c2 = (bits | (1 << j), st2)
+                            if c2 not in seen:
+                                seen.add(c2)
+                                new.append(c2)
+                                if order is not None:
+                                    order[c2] = (int(p.slot_op[r, j]),
+                                                 order[cfg])
+            frontier = new
+        survivors, new_order = _return_filter(seen, order,
+                                              int(p.ret_slot[r]))
+        if not survivors:
+            ret = p.ops[int(p.ret_op[r])]
+            return {"valid?": False, "analyzer": "cpu-generic",
+                    "dead-row": r, "op": _op_dict(ret),
+                    "configs": [{"model": st, "pending": []}
+                                for _, st in list(seen)[:MAX_REPORT_CONFIGS]],
+                    "final-paths": _final_paths(p, seen, order)}
+        order = new_order
+        configs = survivors
+
+    out = {"valid?": True, "analyzer": "cpu-generic",
+           "configs": [{"model": st, "pending": []}
+                       for _, st in list(configs)[:MAX_REPORT_CONFIGS]]}
     if order is not None and configs:
         some = next(iter(configs))
         out["witness"] = _witness_path(p, order[some])

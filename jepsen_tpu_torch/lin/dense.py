@@ -31,7 +31,8 @@ import torch
 from jepsen_tpu_torch import _u32, resolve_device
 from jepsen_tpu_torch.lin import dense_cuda
 from jepsen_tpu_torch.lin.prepare import PackedHistory
-from jepsen_tpu_torch.models.kernels import NIL, PACKED_STATE_KERNELS
+from jepsen_tpu_torch.models.kernels import (NIL, PACKED_STATE_KERNELS,
+                                             packed_state_bound)
 
 # Largest window the dense representation takes: 2**20 words = 4 MiB.
 MAX_DENSE_WINDOW = 20
@@ -53,9 +54,9 @@ def plan(p: PackedHistory):
         return None
     if p.state_width != 1 or p.window > MAX_DENSE_WINDOW:
         return None
-    # State ids range over the intern table; NIL is remapped to the id
-    # just past it (nil_id).
-    nid = max(len(p.unintern), 2)
+    # State ids range over the intern table (a one-word set: over its
+    # element bitmasks); NIL is remapped to the id just past them (nil_id).
+    nid = packed_state_bound(p.kernel, len(p.unintern))
     if nid + 1 > MAX_DENSE_STATES:
         return None
     w = next(b for b in _W_BUCKETS if b >= p.window)

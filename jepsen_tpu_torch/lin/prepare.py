@@ -170,27 +170,148 @@ def _op_f_and_values(o: LinOp, intern: _Interner) -> tuple[int, list[int]]:
     return f_id, v
 
 
+# Device-formulation size bounds: a history past them gets no kernel
+# (kernel None), and the generic CPU search decides it.
+MAX_SET_WORDS = 16        # 16 x 31 = 496 distinct set elements
+MAX_QUEUE_VALUES = 32     # distinct unordered-queue values (state width)
+MAX_FIFO_CAP = 31         # fifo depth bound (state width 32)
+
+
+def _max_queue_depth(ops: list[LinOp], n_initial: int) -> int:
+    """Upper bound on FIFO depth over every possible linearization: at any
+    event position t, at most the enqueues invoked by t have linearized,
+    and at least the ok dequeues returned by t have."""
+    events = []
+    for o in ops:
+        if o.f == "enqueue":
+            events.append((o.invoke_pos, 1))
+        elif o.f == "dequeue" and o.return_pos is not None:
+            events.append((o.return_pos, -1))
+    events.sort()
+    depth = peak = n_initial
+    for _, d in events:
+        depth += d
+        peak = max(peak, depth)
+    return peak
+
+
+def _no_kernel(n: int):
+    return (None, np.array([0], np.int32), np.zeros(n, np.int32),
+            np.full((n, VALUE_WIDTH), int(NIL), np.int32))
+
+
 def _kernelize(model, ops: list[LinOp], intern: _Interner):
-    """The step kernel for this model plus the per-op interned
+    """The step kernel sized for this history plus the per-op interned
     (f, value-words) tables: ``(kernel, init_state, op_f, op_v)``. kernel
-    is None when the model has no packed formulation."""
+    is None when the model, or this history, has no packed formulation;
+    the generic CPU search then decides it. Set and queue kernels are
+    sized from the history (element count, value count, queue depth
+    bound), so their state width depends on the data."""
     n = len(ops)
-    if not isinstance(model, (model_ns.CASRegister, model_ns.Register,
-                              model_ns.Mutex)):
-        return (None, np.array([0], np.int32), np.zeros(n, np.int32),
-                np.full((n, VALUE_WIDTH), int(NIL), np.int32))
-    kernel = kernel_for(model)
-    if isinstance(model, model_ns.Mutex):
-        init_state = kernel.init_state()
-    else:
-        init_state = np.array([intern(model.value)], np.int32)
-    op_f = np.zeros(n, np.int32)
-    op_v = np.full((n, VALUE_WIDTH), int(NIL), np.int32)
-    for i, o in enumerate(ops):
-        f_id, v = _op_f_and_values(o, intern)
-        op_f[i] = f_id
-        op_v[i] = v
-    return kernel, init_state, op_f, op_v
+
+    def tables(vw):
+        return (np.zeros(n, np.int32),
+                np.full((n, vw), int(NIL), np.int32))
+
+    if isinstance(model, (model_ns.CASRegister, model_ns.Register,
+                          model_ns.Mutex)):
+        kernel = kernel_for(model)
+        if isinstance(model, model_ns.Mutex):
+            init_state = kernel.init_state()
+        else:
+            init_state = np.array([intern(model.value)], np.int32)
+        op_f, op_v = tables(kernel.value_width)
+        for i, o in enumerate(ops):
+            f_id, v = _op_f_and_values(o, intern)
+            op_f[i] = f_id
+            op_v[i] = v
+        return kernel, init_state, op_f, op_v
+
+    if isinstance(model, model_ns.SetModel):
+        if any(o.f not in F_IDS for o in ops) or \
+                any(o.f == "add" and o.value is None for o in ops) or \
+                any(e is None for e in model.s):
+            return _no_kernel(n)
+        # Dense element ids: initial elements first, then history order.
+        initial_ids = [intern(e) for e in sorted(model.s, key=repr)]
+        for o in ops:
+            if o.f == "add":
+                intern(o.value)
+            elif o.f == "read":
+                try:
+                    for e in (o.value if o.value is not None else ()):
+                        intern(e)
+                except TypeError:
+                    pass
+        n_elements = max(1, len(intern.values))
+        n_words = -(-n_elements // K.SET_BITS)
+        if n_words > MAX_SET_WORDS:
+            return _no_kernel(n)
+        kernel = K.set_kernel(n_elements, initial_ids)
+        op_f, op_v = tables(kernel.value_width)
+        for i, o in enumerate(ops):
+            op_f[i] = F_IDS[o.f]
+            if o.f == "add":
+                op_v[i, 0] = intern(o.value)
+            elif o.f == "read":
+                try:
+                    elems = [intern(e) for e in o.value] \
+                        if o.value is not None else None
+                except TypeError:
+                    elems = None
+                if elems is not None and int(NIL) in elems:
+                    # A None element is never in the state (nil adds were
+                    # refused above), so this read never matches.
+                    elems = None
+                if elems is not None:
+                    # The observed mask; all-NIL (never matches) when the
+                    # read's value is not a collection.
+                    op_v[i, :n_words] = 0
+                    for e in elems:
+                        op_v[i, e // K.SET_BITS] |= np.int32(
+                            1 << (e % K.SET_BITS))
+        return kernel, kernel.init_state(), op_f, op_v
+
+    if isinstance(model, (model_ns.UnorderedQueue, model_ns.FIFOQueue)):
+        initial = list(model.pending)
+        if any(o.f not in F_IDS for o in ops) \
+                or any(v is None for v in initial) \
+                or any(o.f == "enqueue" and o.value is None for o in ops):
+            return _no_kernel(n)
+        initial_ids = [intern(v) for v in initial]
+        for o in ops:
+            if o.f in ("enqueue", "dequeue") and o.value is not None:
+                intern(o.value)
+        if isinstance(model, model_ns.FIFOQueue):
+            depth = _max_queue_depth(ops, len(initial))
+            if depth > MAX_FIFO_CAP:
+                return _no_kernel(n)
+            kernel = K.fifo_queue_kernel(max(1, depth), initial_ids)
+        else:
+            n_values = max(1, len(intern.values))
+            enq_ids = initial_ids + [intern(o.value) for o in ops
+                                     if o.f == "enqueue"]
+            if len(set(enq_ids)) == len(enq_ids):
+                # Every enqueued value distinct: the pending multiset is a
+                # set, packed as a bitmask (31 values a word).
+                n_words = -(-n_values // K.SET_BITS)
+                if n_words > MAX_SET_WORDS:
+                    return _no_kernel(n)
+                kernel = K.unordered_unique_kernel(n_values, initial_ids)
+            elif n_values <= MAX_QUEUE_VALUES:
+                kernel = K.unordered_queue_kernel(n_values, initial_ids)
+            else:
+                return _no_kernel(n)
+        op_f, op_v = tables(kernel.value_width)
+        for i, o in enumerate(ops):
+            op_f[i] = F_IDS[o.f]
+            if o.f in ("enqueue", "dequeue"):
+                # A nil dequeue interns to NIL, which is never legal: the
+                # Python models' verdict too (nil enqueues were refused).
+                op_v[i, 0] = intern(o.value)
+        return kernel, kernel.init_state(), op_f, op_v
+
+    return _no_kernel(n)
 
 
 def _pack_events_py(invoke_pos, return_pos, op_f, op_v, max_window,
@@ -430,6 +551,75 @@ def py_step_fn(kernel_name: str) -> Callable:
                 return locked == 0, (1,)
             if f == K.F_RELEASE:
                 return locked == 1, (0,)
+            return False, state
+
+        return step
+
+    if kernel_name == "set":
+        def step(state, f, v):
+            if f == K.F_ADD:
+                e = v[0]
+                if e == nil:
+                    return False, state
+                w, b = divmod(e, K.SET_BITS)
+                s = list(state)
+                s[w] |= 1 << b
+                return True, tuple(s)
+            if f == K.F_READ:
+                return tuple(v[:len(state)]) == tuple(state), state
+            return False, state
+
+        return step
+
+    if kernel_name == "unordered-unique":
+        def step(state, f, v):
+            e = v[0]
+            if e == nil:
+                return False, state
+            w, b = divmod(e, K.SET_BITS)
+            has = bool((state[w] >> b) & 1)
+            if f == K.F_ENQUEUE and not has:
+                s = list(state)
+                s[w] |= 1 << b
+                return True, tuple(s)
+            if f == K.F_DEQUEUE and has:
+                s = list(state)
+                s[w] &= ~(1 << b)
+                return True, tuple(s)
+            return False, state
+
+        return step
+
+    if kernel_name == "unordered-queue":
+        def step(state, f, v):
+            e = v[0]
+            if f == K.F_ENQUEUE:
+                s = list(state)
+                s[e] += 1
+                return True, tuple(s)
+            if f == K.F_DEQUEUE:
+                if 0 <= e < len(state) and state[e] > 0:
+                    s = list(state)
+                    s[e] -= 1
+                    return True, tuple(s)
+                return False, state
+            return False, state
+
+        return step
+
+    if kernel_name == "fifo-queue":
+        def step(state, f, v):
+            size, buf = state[0], state[1:]
+            if f == K.F_ENQUEUE:
+                if size >= len(buf):
+                    return False, state
+                s = list(buf)
+                s[size] = v[0]
+                return True, (size + 1, *s)
+            if f == K.F_DEQUEUE:
+                if size > 0 and buf[0] == v[0]:
+                    return True, (size - 1, *buf[1:], 0)
+                return False, state
             return False, state
 
         return step

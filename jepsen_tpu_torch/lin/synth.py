@@ -234,6 +234,97 @@ def generate_mutex_history(n_ops: int,
     return index_history(History(h))
 
 
+def generate_queue_history(n_ops: int,
+                           concurrency: int = 3,
+                           seed: int = 0,
+                           fifo: bool = True,
+                           crash_prob: float = 0.0,
+                           max_crashes: int = 8) -> History:
+    """A linearizable-by-construction queue history (enqueue/dequeue), the
+    shape of Jepsen's queue workloads: enqueued values are unique ints;
+    a dequeue completes with the value actually removed (FIFO order when
+    ``fifo``, random otherwise), and on an empty queue it fails."""
+    rng = random.Random(seed)
+    q: list[int] = []
+    next_v = 0
+    h: list[Op] = []
+    procs = list(range(concurrency))
+    pending: dict[int, Op] = {}
+    crashes = 0
+    invoked = 0
+
+    while invoked < n_ops or pending:
+        can_invoke = invoked < n_ops and len(pending) < concurrency
+        if can_invoke and (not pending or rng.random() < 0.6):
+            free = [p for p in procs if p not in pending]
+            proc = rng.choice(free)
+            if rng.random() < 0.5:
+                op = Op("invoke", "enqueue", next_v, proc)
+                next_v += 1
+            else:
+                op = Op("invoke", "dequeue", None, proc)
+            pending[proc] = op
+            h.append(op)
+            invoked += 1
+        else:
+            proc = rng.choice(list(pending))
+            op = pending.pop(proc)
+            if crashes < max_crashes and rng.random() < crash_prob:
+                if op.f == "enqueue" and rng.random() < 0.5:
+                    q.append(op.value)
+                h.append(Op("info", op.f, op.value, proc))
+                crashes += 1
+                i = procs.index(proc)
+                procs[i] = proc + concurrency
+            elif op.f == "enqueue":
+                q.append(op.value)
+                h.append(Op("ok", "enqueue", op.value, proc))
+            elif q:
+                v = q.pop(0) if fifo else q.pop(rng.randrange(len(q)))
+                h.append(Op("ok", "dequeue", v, proc))
+            else:
+                h.append(Op("fail", "dequeue", None, proc))
+    return index_history(History(h))
+
+
+def generate_set_history(n_ops: int,
+                         concurrency: int = 3,
+                         seed: int = 0,
+                         read_prob: float = 0.2) -> History:
+    """A linearizable-by-construction set history (add/read): a read
+    completes with the full membership at its linearization point."""
+    rng = random.Random(seed)
+    s: set[int] = set()
+    next_v = 0
+    h: list[Op] = []
+    procs = list(range(concurrency))
+    pending: dict[int, Op] = {}
+    invoked = 0
+
+    while invoked < n_ops or pending:
+        can_invoke = invoked < n_ops and len(pending) < concurrency
+        if can_invoke and (not pending or rng.random() < 0.6):
+            free = [p for p in procs if p not in pending]
+            proc = rng.choice(free)
+            if rng.random() < read_prob:
+                op = Op("invoke", "read", None, proc)
+            else:
+                op = Op("invoke", "add", next_v, proc)
+                next_v += 1
+            pending[proc] = op
+            h.append(op)
+            invoked += 1
+        else:
+            proc = rng.choice(list(pending))
+            op = pending.pop(proc)
+            if op.f == "add":
+                s.add(op.value)
+                h.append(Op("ok", "add", op.value, proc))
+            else:
+                h.append(Op("ok", "read", sorted(s), proc))
+    return index_history(History(h))
+
+
 def corrupt_history(history: History, seed: int = 0,
                     n_corruptions: int = 1) -> History:
     """Corrupt ok-read values so the history is (very likely) not

@@ -228,8 +228,9 @@ def _mutex_wide(n=22):
 @pytest.mark.parametrize("band", ["crash-dom", "pair-key crash-dom",
                                   "generic packed"])
 def test_bands_left_out_are_honest_unknowns(band):
-    """The generic packed band is still left out: an unknown naming it.
-    The crash-dom bands, left out until their slice was ported, now take
+    """No band is left out any more. The generic packed band decides the
+    wide mutex with the reference's verdict, and only a window past the
+    device bitset is still an honest unknown. The crash-dom bands take
     crashed histories; what they cannot hold (here a frontier past a tiny
     last host capacity) is an honest capacity unknown, never a guess."""
     if band == "crash-dom":
@@ -243,9 +244,21 @@ def test_bands_left_out_are_honest_unknowns(band):
         p = _mutex_wide()
     assert p.window > 20
     if band == "generic packed":
+        from jepsen_tpu import history as jh
+
+        assert tbfs.key_band(p) == "generic"
+        n = 22
+        ops = [jh.invoke_op(q, "acquire", None) for q in range(n)]
+        ops += [jh.ok_op(q, "acquire", None) for q in range(n)]
+        rj = jbfs.check_packed(jprep.prepare(jm.mutex(), jh.History.of(*ops)))
         r = tlin.device_check_packed(p, device="cpu")
+        assert r["analyzer"] == "gpu-bfs" and r["valid?"] is False
+        assert {k: r.get(k) for k in KEYS} == {k: rj.get(k) for k in KEYS}
+        wide = _mutex_wide_prepared(65)
+        r = tlin.device_check_packed(wide, device="cpu")
         assert r["valid?"] == "unknown" and r["analyzer"] == "gpu-bfs"
-        assert band in r["error"] and "not yet ported" in r["error"]
+        assert r["error"] == ("concurrency window 65 exceeds device bitset "
+                              "width 64")
         return
     assert tbfs.band_error(p) is None
     r = tlin.device_check_packed(p, device="cpu", cap_schedule=(64,),
@@ -254,6 +267,15 @@ def test_bands_left_out_are_honest_unknowns(band):
     assert r["overflow"] == "capacity"
     assert r["error"] == "frontier exceeded capacity 64"
     assert r["host-stats"]["episodes"] == 1
+
+
+def _mutex_wide_prepared(n):
+    """n concurrent acquires, packed past the device bitset's 64 slots."""
+    from jepsen_tpu_torch import history as th
+
+    ops = [th.invoke_op(q, "acquire", None) for q in range(n)]
+    ops += [th.ok_op(q, "acquire", None) for q in range(n)]
+    return tprep.prepare(tm.mutex(), th.History.of(*ops), max_window=128)
 
 
 def test_a_crash_free_pair_window_routes_to_the_sparse_engine(engine_runs,

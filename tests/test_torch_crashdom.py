@@ -453,18 +453,30 @@ def test_host_row_overflow_is_the_references_unknown(per_row, monkeypatch,
         {k: rj["host-stats"][k] for k in HOST_KEYS}
 
 
-def test_a_crashed_generic_band_history_stays_an_honest_unknown():
+def test_a_crashed_generic_band_history_decides_like_the_reference():
     """Crashed ops outside the register family (a mutex, the generic
-    packed band) still answer that band's unknown from ``"gpu"``."""
+    packed band) decide on ``gpu-bfs`` with the reference's verdict, dead
+    row and op, through the band's ordinary loop: no crash-dom path, so
+    no host-row stats."""
+    from jepsen_tpu import history as jh
+
     n = 22
-    ops = [th.invoke_op(p, "acquire", None) for p in range(n)]
-    ops += [th.invoke_op(n, "release", None), th.info_op(n, "release", None)]
-    ops += [th.ok_op(p, "acquire", None) for p in range(n)]
-    p = tprep.prepare(tm.mutex(), th.History.of(*ops))
+
+    def ops(h):
+        out = [h.invoke_op(p, "acquire", None) for p in range(n)]
+        out += [h.invoke_op(n, "release", None),
+                h.info_op(n, "release", None)]
+        out += [h.ok_op(p, "acquire", None) for p in range(n)]
+        return h.History.of(*out)
+
+    p = tprep.prepare(tm.mutex(), ops(th))
     assert p.window > 20 and p.crashed.any()
+    assert tbfs.key_band(p) == "generic"
+    rj = jbfs.check_packed(jprep.prepare(jm.mutex(), ops(jh)))
     r = tlin.device_check_packed(p, device="cpu")
-    assert r["valid?"] == "unknown" and r["analyzer"] == "gpu-bfs"
-    assert r["error"] == "generic packed band (mutex) not yet ported"
+    assert r["analyzer"] == "gpu-bfs" and r["valid?"] is False
+    assert {k: r.get(k) for k in KEYS} == {k: rj.get(k) for k in KEYS}
+    assert "host-stats" not in r
 
 
 @pytest.mark.parametrize("seed", [0, 7])
