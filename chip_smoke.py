@@ -171,8 +171,26 @@ raises on a failure:
     and ``"cpu"`` on the same op and dead row, with final paths. The
     multiword shapes report their rows, closure passes and fetches.
 
+22. the pack layer (``[pack-*]``; no kernel, no ``pallas_call`` site):
+    on the dense headline's history and config 5's (100k ops, window
+    49) ``prepare`` plus ``reduction_tables`` by default (the native
+    walk) and with ``JEPSEN_TPU_FAST_PACK=0`` (the py walk), and the
+    native and vec walks alone on the same columns, best of 3
+    interleaved, on the host's clock, which must give the same tables;
+    ``pack_dev.materialize`` on the card of those two and phase 21's
+    100k mutex, bit-exact to the host pack (every table, ``pure`` and
+    ``pred``), its first call and best later call, with the host's
+    prepack beside the host pack, bucket and peak device memory; then
+    ``pack_dev.materialize_batch`` over ``[batch-etcd]``'s 1,000 keys
+    (``MIN_BATCH_K`` 1), every lane bit-exact to the host pack, with the
+    host's prepack beside the host pack of the same keys.
+    ``dev_stats()`` must show device calls and no eligible lane on the
+    host path; the phase must take under 60 s. The device packer is not
+    on the main path: it does not beat the host pack (PERF.md).
+
 ``python3 chip_smoke.py --bands`` runs the build and phase 21 alone,
-printing its kernels' entries and the card, and no contract line.
+printing its kernels' entries and the card, and no contract line;
+``--pack`` the build and phase 22 alone.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1073,6 +1091,7 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
+    walk = prepare.pack_stats()["mode"]
     with contextlib.ExitStack() as stack:
         for spy in run_spies:
             stack.enter_context(spy)
@@ -1090,8 +1109,8 @@ def headline(dev, model, h, kernels: dict, tag: str, timed_h=None,
         f"final-frontier-size={r.get('final-frontier-size')} "
         f"launches={launches}")
     log(f"[{tag}-headline] stats={stats}")
-    log(f"[{tag}-headline] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s "
-        f"({n / t_e2e:.0f} ops/s); fetches/row="
+    log(f"[{tag}-headline] prepare={t_prep:.3f}s walk={walk} "
+        f"e2e={t_e2e:.3f}s ({n / t_e2e:.0f} ops/s); fetches/row="
         f"{stats['fetches'] / max(stats['rows'], 1):.3f}")
     if r["valid?"] is not True or r.get("analyzer") != "gpu-bfs":
         raise AssertionError(f"headline: {r}")
@@ -2337,6 +2356,7 @@ def dom_headline(dev, model, h, pair: bool, rechecks: bool, spies=()):
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
+    walk = prepare.pack_stats()["mode"]
     with contextlib.ExitStack() as stack:
         for spy in spies:
             stack.enter_context(spy)
@@ -2354,8 +2374,8 @@ def dom_headline(dev, model, h, pair: bool, rechecks: bool, spies=()):
         f"{r.get('final-frontier-size')} launches={launches}")
     log(f"[{tag}-headline] engine-stats={r.get('engine-stats')}")
     log(f"[{tag}-headline] host-stats={r.get('host-stats')}")
-    log(f"[{tag}-headline] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s "
-        f"({n / t_e2e:.1f} ops/s)")
+    log(f"[{tag}-headline] prepare={t_prep:.3f}s walk={walk} "
+        f"e2e={t_e2e:.3f}s ({n / t_e2e:.1f} ops/s)")
     if r["valid?"] is not True or r.get("analyzer") != "gpu-bfs":
         raise AssertionError(f"{tag} headline: {r}")
     if launches.get(name, 0) <= 0:
@@ -3194,6 +3214,7 @@ def bands_phases(dev) -> dict:
         t0 = time.perf_counter()
         p = prepare.prepare(model, h)
         t_prep = time.perf_counter() - t0
+        walk = prepare.pack_stats()["mode"]
         if bfs.key_band(p) != band or dense.plan(p) is not None:
             raise AssertionError(f"[bands-{name}] routed to the "
                                  f"{bfs.key_band(p)} band (dense plan "
@@ -3228,7 +3249,8 @@ def bands_phases(dev) -> dict:
             f"launches={launches}")
         t_dev = spies[0].total_ms() / 1e3
         passes = stats.get("unfused_passes", stats.get("passes", 0))
-        log(f"[bands-{name}] prepare={t_prep:.3f}s e2e={t_e2e:.3f}s device "
+        log(f"[bands-{name}] prepare={t_prep:.3f}s walk={walk} "
+            f"e2e={t_e2e:.3f}s device "
             f"check={t_dev:.3f}s ({t_dev / max(passes, 1) * 1e3:.4f} ms a "
             f"closure pass) cpu oracle={t_cpu:.3f}s ({rc['valid?']}, "
             f"{rc.get('analyzer')}) stats={stats}")
@@ -3304,10 +3326,267 @@ def band_counterexample(dev, name: str, model, h):
                              f"final paths: {rg.get('error')}")
 
 
-def main(device: str = "cuda", bands_only: bool = False) -> int:
+# --- the pack layer (phase 22) -----------------------------------------------
+
+# BASELINE config 5's history (jepsen_tpu_torch/config5.py: window 49, 24
+# crashed mutators), packed here only.
+PACK_CONFIG5 = dict(n_ops=100_000, seed=7, invoke_bias=0.45)
+PACK_REPS = 3
+PACK_FIELDS = ("ret_slot", "ret_op", "active", "slot_f", "slot_v",
+               "slot_op", "crashed", "init_state")
+
+
+@contextlib.contextmanager
+def fast_pack(on: bool):
+    """``JEPSEN_TPU_FAST_PACK`` set (``=0`` when not ``on``) inside, and
+    put back as it was after."""
+    saved = os.environ.get("JEPSEN_TPU_FAST_PACK")
+    os.environ["JEPSEN_TPU_FAST_PACK"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("JEPSEN_TPU_FAST_PACK", None)
+        else:
+            os.environ["JEPSEN_TPU_FAST_PACK"] = saved
+
+
+def same_pack(a, b, tag: str) -> None:
+    """Raise unless two packs of one history are the same: every
+    PackedHistory field, the interns, the ops and the reduction tables."""
+    import numpy as np
+
+    from jepsen_tpu_torch.lin import prepare
+
+    if (a.window, a.R) != (b.window, b.R):
+        raise AssertionError(f"{tag}: window/R {(a.window, a.R)} against "
+                             f"{(b.window, b.R)}")
+    ra, rb = prepare.reduction_tables(a), prepare.reduction_tables(b)
+    pairs = [(name, getattr(a, name), getattr(b, name))
+             for name in PACK_FIELDS]
+    pairs += [("pure", ra[0], rb[0]), ("pred", ra[1], rb[1])]
+    for name, x, y in pairs:
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{tag}: {name} differs ({x.dtype} "
+                                 f"{x.shape} against {y.dtype} {y.shape})")
+    if a.intern != b.intern or a.unintern != b.unintern \
+            or a.ops != b.ops or a.crashed_ops != b.crashed_ops \
+            or (a.kernel and a.kernel.name) != (b.kernel and b.kernel.name):
+        raise AssertionError(f"{tag}: interns, ops or kernel differ")
+
+
+def host_pack(model, h):
+    """``prepare`` plus ``reduction_tables`` of ``h``: the pack and the
+    host's wall seconds."""
+    from jepsen_tpu_torch.lin import prepare
+
+    t0 = time.perf_counter()
+    p = prepare.prepare(model, h)
+    prepare.reduction_tables(p)
+    return p, time.perf_counter() - t0
+
+
+def pack_walks(name: str, model, h, smi: str) -> tuple:
+    """The host packer on ``h``, ``PACK_REPS`` rounds interleaved: the
+    default ``prepare`` plus ``reduction_tables`` (it must take the native
+    walk: two value words) beside the spec path
+    (``JEPSEN_TPU_FAST_PACK=0``, the py walk), and the two walks the
+    history could take, native and vec, alone on its columns. Every walk
+    must give the same tables. Returns the default pack and its best
+    time."""
+    import numpy as np
+
+    from jepsen_tpu_torch.lin import prepare
+
+    times = {w: [] for w in ("default", "py", "native walk", "vec walk")}
+    packs = {}
+    cols = prepare._columns(model, list(h))
+    (_, kernel, _, op_f, op_v, _, invoke_pos, return_pos, R, _, _) = cols
+    args = (invoke_pos, return_pos, op_f, op_v, prepare.MAX_WINDOW,
+            kernel is not None, R)
+    walks = {}
+    for _ in range(PACK_REPS):
+        for fast, leg in ((True, "default"), (False, "py")):
+            with fast_pack(fast):
+                p, dt = host_pack(model, h)
+                ran = prepare.pack_stats()["mode"]
+            times[leg].append(dt)
+            want = "native" if fast else "py"
+            if ran != want:
+                raise AssertionError(f"[pack-{name}] the {leg} pack ran "
+                                     f"the {ran} walk, not {want}")
+            packs.setdefault(leg, p)
+        for walk, fn in (("native walk", prepare._pack_events_native),
+                         ("vec walk", prepare._pack_events_vec)):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times[walk].append(time.perf_counter() - t0)
+            walks.setdefault(walk, out)
+    same_pack(packs["default"], packs["py"], f"[pack-{name}] py walk")
+    W = packs["default"].window
+    for walk, out in walks.items():
+        got = [np.asarray(x)[:, :W] if np.ndim(x) >= 2 else np.asarray(x)
+               for x in out[:6]]
+        want = [packs["default"].ret_slot, packs["default"].ret_op,
+                packs["default"].active, packs["default"].slot_f,
+                packs["default"].slot_v, packs["default"].slot_op]
+        if out[6] != W or any(x.dtype != y.dtype or not np.array_equal(x, y)
+                              for x, y in zip(got, want)):
+            raise AssertionError(f"[pack-{name}] the {walk}'s tables "
+                                 "differ from the default pack's")
+    best = {w: min(t) for w, t in times.items()}
+    log(f"[pack-{name}] host packer (host's wall seconds, best of "
+        f"{PACK_REPS} interleaved): prepare + reduction_tables default "
+        f"(native walk) {best['default']:.3f}s "
+        f"{[round(x, 3) for x in times['default']]}, "
+        f"JEPSEN_TPU_FAST_PACK=0 (py walk) {best['py']:.3f}s "
+        f"{[round(x, 3) for x in times['py']]}, py over default "
+        f"{best['py'] / best['default']:.2f}x; the slot walk alone on the "
+        f"same columns: native {best['native walk'] * 1e3:.1f} ms "
+        f"{[round(x * 1e3, 1) for x in times['native walk']]}, vec "
+        f"{best['vec walk'] * 1e3:.1f} ms "
+        f"{[round(x * 1e3, 1) for x in times['vec walk']]}, vec over "
+        f"native {best['vec walk'] / best['native walk']:.2f}x; tables "
+        f"identical | {smi}")
+    return packs["default"], best["default"]
+
+
+def pack_dev_one(dev, name: str, model, h, host, t_host: float,
+                 smi: str) -> None:
+    """``pack_dev.materialize`` of ``h`` on the card: the host's prepack,
+    the first call and the best of three after it, their sum beside the
+    host pack's ``t_host``, the shape bucket and the peak device memory;
+    its tables and reduction tables must be ``host``'s."""
+    import torch
+
+    from jepsen_tpu_torch.lin import pack_dev
+
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    pre = pack_dev.prepack(model, h)
+    t_pre = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(4):
+        before = pack_dev.dev_stats()["dev_packs"]
+        t0 = time.perf_counter()
+        got = pack_dev.materialize(pre, device=dev)
+        runs.append(time.perf_counter() - t0)
+        if pack_dev.dev_stats()["dev_packs"] != before + 1:
+            raise AssertionError(f"[pack-dev-{name}] materialize did not "
+                                 "run on the device")
+        same_pack(host, got, f"[pack-dev-{name}]")
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    shape = pack_dev.pad_shape(pre.n, pre.R, pre.window,
+                               pre.op_v.shape[1])
+    total = t_pre + min(runs[1:])
+    log(f"[pack-dev-{name}] window={pre.window} R={pre.R} n={pre.n} "
+        f"bucket (n_pad, r_pad, w_pad, vw)={shape}: prepack "
+        f"{t_pre:.3f}s (host), materialize first call {runs[0]:.4f}s, "
+        f"then best {min(runs[1:]):.4f}s "
+        f"{[round(x, 4) for x in runs[1:]]} (wall to the host's tables); "
+        f"prepack + best materialize {total:.3f}s against the host pack's "
+        f"{t_host:.3f}s ({t_host / total:.2f}x); peak device memory "
+        f"{peak:.1f} MiB; bit-exact to the host pack, pure/pred included "
+        f"| {smi}")
+
+
+def pack_dev_batch(dev, smi: str) -> None:
+    """``pack_dev.materialize_batch`` over ``[batch-etcd]``'s 1,000 keys
+    with ``pack_dev.MIN_BATCH_K`` set to 1 for the call, so that every
+    eligible lane must ride the device, every lane held to the host pack,
+    its time with the host's prepack beside the host pack's time for the
+    same keys."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import pack_dev
+
+    hs = [batch_key_history(s)
+          for s in batch_key_specs(BATCH_ETCD, BATCH_ETCD_CORRUPT)]
+    model = m.cas_register()
+    t0 = time.perf_counter()
+    hosts = [host_pack(model, h)[0] for h in hs]
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pres = [pack_dev.prepack(model, h) for h in hs]
+    t_pre = time.perf_counter() - t0
+    eligible = sum(pack_dev._device_eligible(p) for p in pres)
+    buckets: dict = {}
+    for p in pres:
+        if pack_dev._device_eligible(p):
+            shape = pack_dev.pad_shape(p.n, p.R, p.window, p.op_v.shape[1])
+            buckets[shape] = buckets.get(shape, 0) + 1
+    before = pack_dev.dev_stats()
+    min_k, pack_dev.MIN_BATCH_K = pack_dev.MIN_BATCH_K, 1
+    try:
+        t0 = time.perf_counter()
+        got = pack_dev.materialize_batch(pres, device=dev)
+        t_mat = time.perf_counter() - t0
+    finally:
+        pack_dev.MIN_BATCH_K = min_k
+    st = {k: v - before[k] for k, v in pack_dev.dev_stats().items()}
+    for i, (a, b) in enumerate(zip(hosts, got)):
+        same_pack(a, b, f"[pack-dev-batch] key {i}")
+    if st["dev_lanes"] != eligible or st["host_eligible"] != 0 \
+            or st["host_lanes"] != len(pres) - eligible \
+            or st["dev_packs"] != len(buckets):
+        raise AssertionError(f"[pack-dev-batch] {eligible} eligible lanes "
+                             f"in {len(buckets)} buckets, dev_stats {st}")
+    small = sum(k for k in buckets.values() if k < pack_dev.MIN_BATCH_K)
+    log(f"[pack-dev-batch] {len(pres)} keys, {eligible} eligible: "
+        f"{st['dev_packs']} waves, {st['dev_lanes']} lanes on the device, "
+        f"{st['host_lanes']} on the host; buckets {buckets} ({small} lanes "
+        f"in waves below MIN_BATCH_K {pack_dev.MIN_BATCH_K}); "
+        f"materialize_batch {t_mat:.3f}s (wall) after the host's prepack "
+        f"{t_pre:.3f}s, {t_pre + t_mat:.3f}s in all, against the host pack "
+        f"of the same keys (prepare + reduction_tables) {t_host:.3f}s "
+        f"({t_host / (t_pre + t_mat):.2f}x); every lane bit-exact to it "
+        f"| {smi}")
+
+
+def pack_phases(dev, smi: str) -> None:
+    """Phase 22: the host walks on the dense headline and config 5's
+    history, and the device packer on those, the 100k mutex and
+    ``[batch-etcd]``'s keys. It makes its histories anew, so that the
+    phases before it run on the heap they had without it."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import pack_dev, synth
+
+    t_phase = time.perf_counter()
+    pack_dev.reset_dev_stats()
+    model = m.cas_register()
+    shapes = [("headline", model,
+               synth.generate_register_history(**HEADLINE)),
+              ("config5", model,
+               synth.generate_partitioned_register_history(**PACK_CONFIG5))]
+    gen, kw, model_name, _, _ = BANDS["mutex"]
+    with fast_pack(True):
+        for name, model, h in shapes:
+            host, t_host = pack_walks(name, model, h, smi)
+            pack_dev_one(dev, name, model, h, host, t_host, smi)
+        mutex = getattr(m, model_name)()
+        h = getattr(synth, gen)(**kw)
+        host, t_host = host_pack(mutex, h)
+        pack_dev_one(dev, "mutex", mutex, h, host, t_host, smi)
+        pack_dev_batch(dev, smi)
+    st = pack_dev.dev_stats()
+    log(f"[pack] dev_stats over phase 22: {st}")
+    if st["dev_packs"] <= 0 or st["host_eligible"] != 0:
+        raise AssertionError(f"[pack] device packer stats {st}")
+    took = time.perf_counter() - t_phase
+    log(f"[pack] phase 22 in {took:.1f}s")
+    if took > 60:
+        raise AssertionError(f"[pack] phase 22 took {took:.1f}s (> 60 s)")
+
+
+def main(device: str = "cuda", bands_only: bool = False,
+         pack_only: bool = False) -> int:
     """Run every phase on ``device`` ("cpu" only rehearses the control
     flow with the plain versions in place of the kernels), or with
-    ``bands_only`` the build and phase 21 alone."""
+    ``bands_only`` the build and phase 21 alone, or with ``pack_only``
+    the build and phase 22 alone."""
     import torch
 
     if device == "cuda" and not torch.cuda.is_available():
@@ -3343,6 +3622,10 @@ def main(device: str = "cuda", bands_only: bool = False) -> int:
                              "not dense_cuda.SHARED_MAX_W")
     if bands_only:
         print(json.dumps({"bands": bands_phases(dev)}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if pack_only:
+        pack_phases(dev, smi)
         print(smi, flush=True)
         return 0
     for name in ("dense_chunk", "psort", "psort_fused"):
@@ -3403,6 +3686,7 @@ def main(device: str = "cuda", bands_only: bool = False) -> int:
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
+    walk = prepare.pack_stats()["mode"]
     w, ns, nil_id, _ = dense.plan(p)
     runs = []
     for _ in range(4):
@@ -3419,6 +3703,7 @@ def main(device: str = "cuda", bands_only: bool = False) -> int:
         f"verdict={r['valid?']} analyzer={r.get('analyzer')} "
         f"backend={r.get('backend')}")
     log(f"[headline] synth={t_synth:.3f}s prepare={t_prep:.3f}s "
+        f"walk={walk} "
         f"checker.linearizable e2e={t_e2e:.3f}s "
         f"({HEADLINE['n_ops'] / t_e2e:.0f} ops/s)")
     log(f"[headline] device check warm={runs[0]:.4f}s "
@@ -3529,6 +3814,7 @@ def main(device: str = "cuda", bands_only: bool = False) -> int:
     for k in kernels:
         if k["name"] in bands:
             k["bands_mutex"] = bands[k["name"]]
+    pack_phases(dev, smi)
     return finish(kernels, smi, kind)
 
 
@@ -3545,6 +3831,7 @@ def finish(kernels, smi: str, kind: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--bands"]):
-        sys.exit("usage: chip_smoke.py [--bands]")
-    sys.exit(main(bands_only=sys.argv[1:] == ["--bands"]))
+    if sys.argv[1:] not in ([], ["--bands"], ["--pack"]):
+        sys.exit("usage: chip_smoke.py [--bands | --pack]")
+    sys.exit(main(bands_only=sys.argv[1:] == ["--bands"],
+                  pack_only=sys.argv[1:] == ["--pack"]))

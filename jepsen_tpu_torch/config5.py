@@ -6,7 +6,8 @@ from the repository's root. Config 5 is the 100k-op partition-nemesis register h
 CockroachDB's 30 processes (``generate_partitioned_register_history(
 100_000, seed=7, invoke_bias=0.45)``: window 49, 24 crashed mutators, the
 crash-dom pair-key band). The script prints the card's name and power
-limit, builds the kernels, times the host pack alone, then runs the
+limit, builds the kernels, times the host pack alone (and names its
+walk, ``native`` for this history), then runs the
 history through ``checker.linearizable(algorithm="gpu")`` with a time
 budget of 2100 s, printing the launch counts once a minute while
 it runs. The result line carries the verdict (or the honest unknown and
@@ -62,9 +63,10 @@ def main() -> int:
     t0 = time.perf_counter()
     p = prepare.prepare(model, h)
     t_prep = time.perf_counter() - t0
+    walk = prepare.pack_stats()["mode"]
     log(f"[config5] ops={OPS} window={p.window} R={p.R} crashed="
         f"{len(p.crashed_ops)} synth={t_synth:.3f}s prepare={t_prep:.3f}s "
-        f"budget={BUDGET_S:.0f}s")
+        f"walk={walk} budget={BUDGET_S:.0f}s")
     for k in psort.LAUNCHES:
         psort.LAUNCHES[k] = 0
     done = threading.Event()
@@ -88,7 +90,7 @@ def main() -> int:
            "analyzer": r.get("analyzer"), "error": r.get("error"),
            "overflow": r.get("overflow"), "max-cap": r.get("max-cap"),
            "final-frontier-size": r.get("final-frontier-size"),
-           "e2e_s": t_e2e, "prepare_s": t_prep,
+           "e2e_s": t_e2e, "prepare_s": t_prep, "walk": walk,
            "device_check_s": t_e2e - t_prep,
            "engine-stats": r.get("engine-stats"),
            "host-stats": r.get("host-stats"),

@@ -17,23 +17,71 @@ CPU oracle and the device engine consume:
    the search iterates over R = #ok-ops rows, each carrying the
    returning slot and the snapshot of active slots with their (f, value).
 
-This is the plain Python walk (the semantics of
-:func:`jepsen_tpu.lin.prepare.prepare` with ``JEPSEN_TPU_FAST_PACK=0``);
-its tables are identical to the JAX package's.
+Three walks compute the same tables, bit for bit, and the JAX
+package's :func:`jepsen_tpu.lin.prepare.prepare` gives them too. The
+history picks the walk; ``JEPSEN_TPU_FAST_PACK`` (the JAX package's knob,
+read per call, default on) picks the spec path:
+
+- ``native`` (default for two value words: every register, cas-register
+  and mutex kernel, and kernel-less histories): the vectorised pairing
+  and interning (:func:`_pair_ops_vec_arrays`, :func:`_kernelize_vec`),
+  then the slot walk in C++ (``csrc/history_pack.cc`` through
+  :mod:`jepsen_tpu_torch.native_ext`, built with the host compiler at
+  first use; a failed build raises), the faster walk there
+  (``chip_smoke.py``'s phase 22 times both);
+- ``vec`` (default for other value widths): the same columns, then the
+  slot walk as numpy sort / cumsum / searchsorted passes
+  (:func:`_pack_events_vec`);
+- ``py`` (``JEPSEN_TPU_FAST_PACK=0``): the Python spec walk
+  (:func:`pair_ops`, :func:`_kernelize`, :func:`_pack_events_py`), the
+  executable reference.
+
+With the knob on, :func:`reduction_tables` builds the canonical chains on
+one rank-compressed key a slot (:func:`_chain_tables_vec`).
+:func:`pack_stats` says which walk ran last.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
+from operator import attrgetter
 from typing import Any, Callable
 
 import numpy as np
 
 from jepsen_tpu_torch import models as model_ns
-from jepsen_tpu_torch.history import Op
+from jepsen_tpu_torch.history import FAIL as H_FAIL
+from jepsen_tpu_torch.history import INFO, INVOKE, OK, Op
 from jepsen_tpu_torch.models import kernels as K
 from jepsen_tpu_torch.models.kernels import (F_IDS, NIL, VALUE_WIDTH,
                                              KernelModel, kernel_for)
+
+
+def fast_pack_enabled() -> bool:
+    """``JEPSEN_TPU_FAST_PACK``: the vectorised columns and the native or
+    numpy slot walk (default on; ``=0`` takes the Python spec walk). Read
+    per call."""
+    return os.environ.get("JEPSEN_TPU_FAST_PACK", "") != "0"
+
+
+# The pack meter: cumulative wall seconds and calls this process, and the
+# walk the last pack took ("vec", "native", "py"; "dev" after the device
+# packer).
+_pack_stats = {"prepare_s": 0.0, "prepare_calls": 0,
+               "reduction_s": 0.0, "reduction_calls": 0, "mode": ""}
+
+
+def pack_stats() -> dict:
+    """A snapshot of the pack meter."""
+    return dict(_pack_stats)
+
+
+def reset_pack_stats() -> None:
+    for k in _pack_stats:
+        _pack_stats[k] = "" if k == "mode" else (0.0 if k.endswith("_s")
+                                                 else 0)
 
 
 class UnsupportedHistory(Exception):
@@ -134,6 +182,106 @@ def pair_ops(history: list[Op]) -> list[LinOp]:
     ops = [o for o in ops if o.ok or o.f != "read"]
     ops.sort(key=lambda o: o.invoke_pos)
     return ops
+
+
+_TYPE_CODE = {INVOKE: 0, OK: 1, H_FAIL: 2, INFO: 3}
+
+
+def _pair_ops_vec_arrays(history: list[Op]):
+    """The vectorised :func:`pair_ops`: the same LinOp list (same order,
+    same ops, same errors). The pending-dict walk becomes a stable sort by
+    (process, time): within one process the events that count alternate
+    invoke / completion, so a completion pairs with its invocation exactly
+    when the process's previous event is an invoke, and an invoke after an
+    invoke is the double-invoke error. Returns ``(ops, invoke_pos,
+    return_pos, ok)``, the last three as arrays (return_pos -1 for a
+    crashed op)."""
+    empty = ([], np.zeros(0, np.int32), np.zeros(0, np.int32),
+             np.zeros(0, bool))
+    n_ev = len(history)
+    if n_ev == 0:
+        return empty
+    get_code = _TYPE_CODE.get
+    tc = np.frombuffer(
+        bytes(get_code(t, 4) for t in map(attrgetter("type"), history)),
+        np.int8)
+    fs = list(map(attrgetter("f"), history))
+    # Processes and fs to dense ids (any hashables).
+    pmap: dict = {}
+    pids = np.fromiter((pmap.setdefault(op.process, len(pmap))
+                        for op in history), np.int64, n_ev)
+    fmap: dict = {}
+    fids = np.fromiter((fmap.setdefault(f, len(fmap)) for f in fs),
+                       np.int64, n_ev)
+    keep = np.ones(n_ev, bool)
+    nem = pmap.get("nemesis")
+    if nem is not None:
+        keep &= pids != nem
+    for excl in ("start", "stop"):
+        fe = fmap.get(excl)
+        if fe is not None:
+            keep &= fids != fe
+    idx = np.flatnonzero(keep)
+    if idx.size == 0:
+        return empty
+    # Grouped by process, in time order within a group (stable).
+    g = idx[np.argsort(pids[idx], kind="stable")]
+    pid_s = pids[g]
+    tc_s = tc[g]
+    first = np.empty(len(g), bool)
+    first[0] = True
+    first[1:] = pid_s[1:] != pid_s[:-1]
+    prev_invoke = np.zeros(len(g), bool)
+    prev_invoke[1:] = (tc_s[:-1] == 0) & ~first[1:]
+    dbl = (tc_s == 0) & prev_invoke
+    if dbl.any():
+        j = np.flatnonzero(dbl)
+        jj = j[np.argmin(g[j])]          # the earliest second invoke
+        p1, p2 = int(g[jj - 1]), int(g[jj])
+        raise UnsupportedHistory(
+            f"process {history[p2].process} invoked twice without "
+            f"completing (positions {p1} and {p2})")
+    paired = (tc_s != 0) & prev_invoke & (tc_s != 2)   # fails drop
+    last = np.empty(len(g), bool)
+    last[-1] = True
+    last[:-1] = first[1:]
+    dangling = (tc_s == 0) & last                      # pending at end
+    pj = np.flatnonzero(paired)
+    ipos = np.concatenate([g[pj - 1], g[np.flatnonzero(dangling)]])
+    cpos = np.concatenate([g[pj], np.full(int(dangling.sum()), -1,
+                                          g.dtype)])
+    okc = np.concatenate([tc_s[pj] == 1,               # ok completions
+                          np.zeros(int(dangling.sum()), bool)])
+    # Crashed reads constrain nothing: dropped here, so the loop below
+    # is one op per array entry.
+    rf = fmap.get("read")
+    if rf is not None:
+        keep2 = okc | (fids[ipos] != rf)
+        ipos, cpos, okc = ipos[keep2], cpos[keep2], okc[keep2]
+    order = np.argsort(ipos, kind="stable")
+    ipos, cpos, okc = ipos[order], cpos[order], okc[order]
+    ops: list[LinOp] = []
+    app = ops.append
+    H = history
+    new = LinOp.__new__
+    for ip, cp, ok in zip(ipos.tolist(), cpos.tolist(), okc.tolist()):
+        inv = H[ip]
+        f = inv.f
+        if f == "read":                  # ok is always True here
+            value = H[cp].value
+        elif f == "dequeue" and ok:
+            cv = H[cp].value
+            value = cv if cv is not None else inv.value
+        else:
+            value = inv.value
+        o = new(LinOp)
+        o.__dict__ = {
+            "op_index": inv.index if inv.index is not None else ip,
+            "process": inv.process, "f": f, "value": value, "ok": ok,
+            "invoke_pos": ip, "return_pos": cp if ok else None}
+        app(o)
+    return (ops, ipos.astype(np.int32, copy=False),
+            np.where(okc, cpos, -1).astype(np.int32, copy=False), okc)
 
 
 class _Interner:
@@ -314,6 +462,230 @@ def _kernelize(model, ops: list[LinOp], intern: _Interner):
     return _no_kernel(n)
 
 
+def _kernelize_vec(model, ops: list[LinOp], intern: _Interner):
+    """The vectorised :func:`_kernelize` for register, cas-register and
+    mutex over int-or-None values: the first-occurrence interner becomes
+    one ``np.unique`` and an argsort. Returns what :func:`_kernelize`
+    returns, or None for another model or value domain (the caller then
+    takes :func:`_kernelize`)."""
+    if not isinstance(model, (model_ns.CASRegister, model_ns.Register,
+                              model_ns.Mutex)):
+        return None
+    n = len(ops)
+    fs = [o.f for o in ops]
+    get = F_IDS.get
+    op_f = np.fromiter((get(f, -1) for f in fs), np.int64, n) \
+        if n else np.zeros(0, np.int64)
+    bad = np.flatnonzero(op_f < 0)
+    if bad.size:
+        raise UnsupportedHistory(
+            f"unknown op f={fs[int(bad[0])]!r} for device packing")
+    kernel = kernel_for(model)
+    # The intern calls in the order the spec loop makes them: model.value
+    # first (registers), then per op, by np.repeat over each op's count
+    # of value words (cas 2, read / write 1, else 0), with a fix-up loop
+    # over the cas ops alone.
+    f_cas = F_IDS.get("cas", -9)
+    f_read = F_IDS.get("read", -9)
+    f_write = F_IDS.get("write", -9)
+    is_cas = op_f == f_cas
+    ent = is_cas * 2 + ((op_f == f_read) | (op_f == f_write))
+    tgt_i_ops = np.repeat(np.arange(n, dtype=np.int64), ent)
+    m_ops = len(tgt_i_ops)
+    tgt_w_ops = np.zeros(m_ops, np.int64)
+    starts = np.cumsum(ent) - ent        # each op's first entry
+    ci = np.flatnonzero(is_cas)
+    tgt_w_ops[starts[ci] + 1] = 1        # a cas's second word
+    vlist = [o.value for o in ops]
+    arr = np.empty(n, object)
+    arr[:] = vlist
+    seq = np.repeat(arr, ent).tolist()   # a cas's entries hold the pair:
+    for j, i in zip(starts[ci].tolist(), ci.tolist()):
+        v = vlist[i]
+        if not isinstance(v, (list, tuple)) or len(v) != 2:
+            raise UnsupportedHistory(
+                f"cas value must be a pair: {v!r}")
+        seq[j] = v[0]
+        seq[j + 1] = v[1]
+    if isinstance(model, model_ns.Mutex):
+        tgt_i = tgt_i_ops
+        tgt_w = tgt_w_ops
+    else:
+        seq.insert(0, model.value)
+        tgt_i = np.concatenate([np.full(1, -1, np.int64), tgt_i_ops])
+        tgt_w = np.concatenate([np.zeros(1, np.int64), tgt_w_ops])
+    m = len(seq)
+    flags = bytearray(m)                 # 1 where seq[j] is an int
+    vals_list: list = []
+    vapp = vals_list.append
+    lo, hi = -(1 << 62), 1 << 62
+    for j, v in enumerate(seq):
+        if v is None:
+            continue
+        if type(v) is not int or v < lo or v >= hi:
+            return None                  # not the int domain
+        flags[j] = 1
+        vapp(v)
+    ids_all = np.full(m, int(NIL), np.int64)
+    nn = np.frombuffer(bytes(flags), bool)
+    vals = np.array(vals_list, np.int64) \
+        if vals_list else np.zeros(0, np.int64)
+    if vals.size:
+        uniq, first, inverse = np.unique(vals, return_index=True,
+                                         return_inverse=True)
+        rank = np.argsort(first, kind="stable")   # first-occurrence order
+        idmap = np.empty(len(uniq), np.int64)
+        idmap[rank] = np.arange(len(uniq))
+        ids_all[nn] = idmap[inverse]
+        intern.values = uniq[rank].tolist()
+        intern.ids = {v: i for i, v in enumerate(intern.values)}
+    op_v = np.full((n, kernel.value_width), int(NIL), np.int32)
+    ti = np.asarray(tgt_i, np.int64)
+    tw = np.asarray(tgt_w, np.int64)
+    opm = ti >= 0
+    op_v[ti[opm], tw[opm]] = ids_all[opm].astype(np.int32)
+    if isinstance(model, model_ns.Mutex):
+        init_state = kernel.init_state()
+    else:
+        init_state = np.array([int(ids_all[0])], np.int32)
+    return kernel, init_state, op_f.astype(np.int32), op_v
+
+
+def _pack_events_vec(invoke_pos, return_pos, op_f, op_v, max_window,
+                     fill_fv, R):
+    """The vectorised packing walk. The LIFO free list becomes sort and
+    cumsum passes: an invoke pops the most recently freed slot, so returns
+    are opens and invokes closes, and bracket matching pairs each invoke
+    that reuses a slot with the return that freed it (within one stack
+    level, opens and closes alternate). Fresh invokes (those popping the
+    virgin region: the new minima of the running return-minus-invoke sum)
+    take slots 0, 1, 2 ... in order; slots propagate along reuse chains by
+    pointer doubling, and the R x W tables are painted as per-op row
+    intervals (a cumsum of endpoint deltas). Its tables are
+    :func:`_pack_events_py`'s, at the used width."""
+    n = len(invoke_pos)
+    vw = op_v.shape[1]
+    nil = int(NIL)
+    has_ret = return_pos >= 0
+    ret_ids = np.flatnonzero(has_ret)
+    ev_pos = np.concatenate([np.asarray(invoke_pos, np.int64),
+                             np.asarray(return_pos, np.int64)[ret_ids]])
+    ev_op = np.concatenate([np.arange(n, dtype=np.int64), ret_ids])
+    n_inv = n
+    order = np.argsort(ev_pos, kind="stable")   # positions are distinct
+    kind_ret = order >= n_inv
+    op_s = ev_op[order]
+    delta = np.where(kind_ret, -1, 1)
+    depth = np.cumsum(delta)
+    W_used = int(depth.max(initial=0))
+    if W_used > max_window:
+        t = int(np.flatnonzero(depth > max_window)[0])
+        raise UnsupportedHistory(
+            f"concurrency window exceeds {max_window} pending ops "
+            f"at history position {int(ev_pos[order[t]])}", kind="window")
+    W = max(1, W_used)
+    slot = np.zeros(n, np.int32)
+    if n:
+        # Fresh invokes: the free stack is empty exactly when the
+        # return-minus-invoke running sum reaches a new minimum.
+        sigma = np.cumsum(-delta)
+        runmin = np.minimum.accumulate(np.minimum(sigma, 0))
+        prev_runmin = np.empty_like(runmin)
+        prev_runmin[0] = 0
+        prev_runmin[1:] = runmin[:-1]
+        fresh = (~kind_ret) & (sigma < prev_runmin)
+        fresh_ops = op_s[fresh]
+        slot_root = np.full(n, -1, np.int32)
+        slot_root[fresh_ops] = np.arange(len(fresh_ops), dtype=np.int32)
+        # Bracket-match the reusing invokes to the returns they reuse.
+        sub = kind_ret | ((~kind_ret) & ~fresh)
+        si = np.flatnonzero(sub)
+        lev = sigma - runmin             # stack size after the event
+        lv = np.where(kind_ret[si], lev[si], lev[si] + 1)
+        so = np.argsort(lv, kind="stable")
+        ss = si[so]
+        lvs = lv[so]
+        run_first = np.empty(len(ss), bool)
+        if len(ss):
+            run_first[0] = True
+            run_first[1:] = lvs[1:] != lvs[:-1]
+        base = np.maximum.accumulate(
+            np.where(run_first, np.arange(len(ss)), 0))
+        rank = np.arange(len(ss)) - base
+        mpair = rank % 2 == 1            # a close at odd rank matches prev
+        parent = np.arange(n, dtype=np.int64)
+        parent[op_s[ss[mpair]]] = op_s[ss[np.flatnonzero(mpair) - 1]]
+        while True:
+            pp = parent[parent]
+            if np.array_equal(pp, parent):
+                break
+            parent = pp
+        slot = slot_root[parent]
+    ret_op = op_s[kind_ret].astype(np.int32)
+    ret_slot = slot[ret_op]
+    # Row intervals: op i is active in rows [r0, r1) at column slot[i].
+    ret_pos_sorted = ev_pos[order[kind_ret]]
+    r0 = np.searchsorted(ret_pos_sorted, np.asarray(invoke_pos, np.int64))
+    r1 = np.full(n, R, np.int64)
+    r1[ret_op] = np.arange(R) + 1
+    # Column-major paint (cumsum along the contiguous axis) of op id + 1.
+    occ = np.zeros((W, R + 1), np.int32)
+    flat = occ.reshape(-1)
+    col = slot.astype(np.int64)
+    ids1 = np.arange(1, n + 1, dtype=np.int32)
+    np.add.at(flat, col * (R + 1) + r0, ids1)
+    np.subtract.at(flat, col * (R + 1) + r1, ids1)
+    np.cumsum(occ, axis=1, out=occ)
+    grid = np.ascontiguousarray(occ[:, :R].T)    # (R, W) op id + 1
+    active = grid != 0
+    slot_op = grid - 1
+    if fill_fv:
+        # slot_op is -1 at inactive cells: a sentinel row appended to the
+        # per-op tables makes the plain gather land on the inactive fill
+        # values there.
+        op_f_ext = np.concatenate([op_f.astype(np.int32, copy=False),
+                                   np.zeros(1, np.int32)])
+        op_v_ext = np.concatenate([op_v.astype(np.int32, copy=False),
+                                   np.full((1, vw), nil, np.int32)])
+        slot_f = op_f_ext[slot_op]
+        slot_v = op_v_ext[slot_op]
+    else:
+        slot_f = np.zeros((R, W), np.int32)
+        slot_v = np.full((R, W, vw), nil, np.int32)
+    return ret_slot, ret_op, active, slot_f, slot_v, slot_op, W_used
+
+
+def _pack_events_native(invoke_pos, return_pos, op_f, op_v, max_window,
+                        fill_fv, R):
+    """The packing walk in C++ (``csrc/history_pack.cc``), two value words.
+    Raises when the library does not build or load."""
+    from jepsen_tpu_torch import native_ext
+
+    try:
+        return native_ext.pack_events(
+            invoke_pos, return_pos, op_f, op_v[:, 0], op_v[:, 1],
+            nil_value=int(NIL), max_window=max_window,
+            fill_fv=fill_fv, R=R)
+    except native_ext.WindowOverflow as e:
+        raise UnsupportedHistory(
+            f"concurrency window exceeds {max_window} pending ops "
+            f"at history position {e.pos}", kind="window") from None
+
+
+def pack_events(invoke_pos, return_pos, op_f, op_v, max_window, fill_fv,
+                R):
+    """The slot walk: ``(tables, walk)``, the tables as
+    :func:`_pack_events_py` returns them (at least the used width) and
+    the walk, "native" for two value words, "vec" for other widths, "py"
+    with ``JEPSEN_TPU_FAST_PACK=0``."""
+    args = (invoke_pos, return_pos, op_f, op_v, max_window, fill_fv, R)
+    if not fast_pack_enabled():
+        return _pack_events_py(*args), "py"
+    if op_v.shape[1] == 2:
+        return _pack_events_native(*args), "native"
+    return _pack_events_vec(*args), "vec"
+
+
 def _pack_events_py(invoke_pos, return_pos, op_f, op_v, max_window,
                     fill_fv, R):
     """The packing walk: slots from a LIFO free list, one table row per
@@ -369,39 +741,73 @@ def _pack_events_py(invoke_pos, return_pos, op_f, op_v, max_window,
     return ret_slot, ret_op, active, slot_f, slot_v, slot_op, max_used
 
 
-def prepare(model, history, max_window: int = MAX_WINDOW) -> PackedHistory:
-    """Pack a history for the frontier search. See module docstring."""
-    history = list(history)
-    ops = pair_ops(history)
+def _columns(model, history: list):
+    """Pairing and kernelizing, vectorised or spec by
+    ``JEPSEN_TPU_FAST_PACK``: the columns every walk starts from,
+    ``(ops, kernel, init_state, op_f, op_v, intern, invoke_pos,
+    return_pos, R, crashed_ops, ok_col)`` (``ok_col`` None on the spec
+    pairing)."""
+    fast = fast_pack_enabled()
+    ok_col = None
+    if fast:
+        ops, invoke_pos, return_pos, ok_col = _pair_ops_vec_arrays(history)
+    else:
+        ops = pair_ops(history)
     intern = _Interner()
-    kernel, init_state, op_f, op_v = _kernelize(model, ops, intern)
-
+    kv = _kernelize_vec(model, ops, intern) if fast else None
+    if kv is None:
+        kernel, init_state, op_f, op_v = _kernelize(model, ops, intern)
+    else:
+        kernel, init_state, op_f, op_v = kv
     n = len(ops)
-    R = sum(1 for o in ops if o.ok)
-    invoke_pos = np.fromiter((o.invoke_pos for o in ops), np.int32, n)
-    return_pos = np.fromiter(
-        (-1 if o.return_pos is None else o.return_pos for o in ops),
-        np.int32, n)
-    ret_slot, ret_op, active, slot_f, slot_v, slot_op, max_used = \
-        _pack_events_py(invoke_pos, return_pos, op_f, op_v, max_window,
-                        kernel is not None, R)
+    if ok_col is not None:
+        R = int(ok_col.sum())
+        crashed = [ops[i] for i in np.flatnonzero(~ok_col).tolist()]
+    else:
+        R = sum(1 for o in ops if o.ok)
+        invoke_pos = np.fromiter((o.invoke_pos for o in ops), np.int32, n)
+        return_pos = np.fromiter(
+            (-1 if o.return_pos is None else o.return_pos for o in ops),
+            np.int32, n)
+        crashed = [o for o in ops if o.return_pos is None]
+    return (ops, kernel, init_state, op_f, op_v, intern, invoke_pos,
+            return_pos, R, crashed, ok_col)
+
+
+def prepare(model, history, max_window: int = MAX_WINDOW) -> PackedHistory:
+    """Pack a history for the frontier search. See module docstring: the
+    history's value width and ``JEPSEN_TPU_FAST_PACK`` pick the walk, and
+    every walk gives the same tables."""
+    t_start = time.perf_counter()
+    (ops, kernel, init_state, op_f, op_v, intern, invoke_pos, return_pos,
+     R, crashed, _) = _columns(model, list(history))
+    packed, mode = pack_events(invoke_pos, return_pos, op_f, op_v,
+                               max_window, kernel is not None, R)
+    ret_slot, ret_op, active, slot_f, slot_v, slot_op, max_used = packed
 
     # Per-slot crashed mask ("this active slot's op never returns"). The
     # sentinel append makes slot_op = -1 (inactive) index a live value;
     # the & active keeps those cells False.
-    ret_ext = np.concatenate([return_pos, np.zeros(1, np.int32)])
+    ret_ext = np.concatenate([return_pos.astype(np.int32, copy=False),
+                              np.zeros(1, np.int32)])
     crashed_tbl = (ret_ext[slot_op] < 0) & active
 
     W = max(1, max_used)
-    return PackedHistory(
+    out = PackedHistory(
         model=model, kernel=kernel, ops=ops, window=W, R=R,
         ret_slot=ret_slot, ret_op=ret_op,
         active=active[:, :W], slot_f=slot_f[:, :W],
         slot_v=slot_v[:, :W], slot_op=slot_op[:, :W],
         crashed=crashed_tbl[:, :W],
         init_state=init_state, intern=intern.ids,
-        unintern=intern.values,
-        crashed_ops=[o for o in ops if o.return_pos is None])
+        unintern=intern.values, crashed_ops=crashed)
+    # The per-op tables ride along for the vectorised chain tables
+    # (reduction_tables).
+    out._op_fv = (op_f, op_v, invoke_pos)
+    _pack_stats["prepare_s"] += time.perf_counter() - t_start
+    _pack_stats["prepare_calls"] += 1
+    _pack_stats["mode"] = mode
+    return out
 
 
 PACKED_FIELDS = ("ret_slot", "ret_op", "active", "slot_f", "slot_v",
@@ -460,13 +866,95 @@ def packed_from_arrays(fields: dict, ops: list[LinOp],
 #    the predecessor's bit is set.
 
 
+def _chain_tables_vec(active, slot_f, slot_v, slot_op, op_ordkey,
+                      op_crashed, op_f_ops=None, op_v_ops=None):
+    """The canonical-chain core of :func:`reduction_tables`, vectorised:
+    the per-row lexsort over (class, value words, order key) becomes one
+    rank-compressed key a slot (the op's class rank, lexicographic over
+    (f << 1 | crashed, value words) by one sort over the ops, in the high
+    bits; its order-key rank in the low bits) and one stable argsort a
+    row. The key orders slots as the spec's lexsort does, so ``pred`` is
+    the same.
+
+    ``op_ordkey`` i64[n]: the op's return row, or past every row by its
+    invoke position when it crashed (unique per op). ``op_crashed``
+    bool[n]. ``op_f_ops`` / ``op_v_ops``: the per-op tables, recovered
+    from the slot tables when None."""
+    n_rows, W = active.shape
+    pure = active & (slot_f == np.int32(K.F_READ))
+    if n_rows == 0:
+        return pure, np.full((n_rows, W), -1, np.int32)
+
+    n = len(op_ordkey)
+    if op_f_ops is None:
+        # Constant per op; every op a chain references is active in
+        # some row.
+        op_f_ops = np.zeros(n, np.int64)
+        op_v_ops = np.full((n, slot_v.shape[2]), int(NIL), np.int64)
+        lin = active.ravel()
+        ops_flat = slot_op.ravel()[lin]
+        op_f_ops[ops_flat] = slot_f.ravel()[lin]
+        op_v_ops[ops_flat] = slot_v.reshape(-1, slot_v.shape[2])[lin]
+    else:
+        op_f_ops = np.asarray(op_f_ops, np.int64)
+        op_v_ops = np.asarray(op_v_ops, np.int64)
+    cls_cols = [op_v_ops[:, k] for k in
+                range(op_v_ops.shape[1] - 1, -1, -1)]
+    cls_cols.append((op_f_ops << 1) | op_crashed)
+    o_ops = np.lexsort(tuple(cls_cols))
+    chg = np.zeros(n, bool)
+    if n > 1:
+        for c in cls_cols:
+            cs = c[o_ops]
+            chg[1:] |= cs[1:] != cs[:-1]
+    # Ranks fit int32 for any n < 2^31, and int32 gathers over the
+    # (R, W) grids are faster than int64 ones.
+    cid_sorted = np.cumsum(chg, dtype=np.int32)
+    class_rank = np.empty(n, np.int32)
+    class_rank[o_ops] = cid_sorted
+    n_classes = int(cid_sorted[-1]) + 1 if n else 0
+    ord_rank = np.empty(n, np.int32)
+    ord_rank[np.argsort(op_ordkey, kind="stable")] = np.arange(
+        n, dtype=np.int32)
+
+    ob = max(1, n).bit_length()
+    cb = max(1, W + n_classes).bit_length()
+    dtype = np.int32 if (ob + cb) <= 31 else np.int64
+    chainable = active & ~pure & (slot_op >= 0)
+    # slot_op = -1 wraps to the last op's rank: masked by ``chainable``
+    # at every use below.
+    cls_slot = (class_rank[slot_op] + np.int32(W)).astype(
+        dtype, copy=False)
+    ord_slot = ord_rank[slot_op].astype(dtype, copy=False)
+    sent_cls = (W - 1 - np.arange(W, dtype=dtype))[None, :]
+    key = np.where(chainable,
+                   (cls_slot << np.array(ob, dtype)) | ord_slot,
+                   sent_cls << np.array(ob, dtype))
+    idt = np.int32 if n_rows * W < (1 << 31) else np.int64
+    order = np.argsort(key, axis=1, kind="stable").astype(
+        idt, copy=False)
+    cls_key = np.where(chainable, cls_slot, sent_cls).astype(
+        np.int32, copy=False)
+    # Flat gathers and scatters in place of take/put_along_axis; row
+    # permutations never collide, so the scatter is well defined.
+    flat = order + (np.arange(n_rows, dtype=idt) * idt(W))[:, None]
+    cs = cls_key.ravel()[flat]
+    same = cs[:, 1:] == cs[:, :-1]
+    pred = np.full(n_rows * W, -1, np.int32)
+    pred[flat[:, 1:]] = np.where(same, order[:, :-1], np.int32(-1))
+    return pure, pred.reshape(n_rows, W)
+
+
 def reduction_tables(p: PackedHistory) -> tuple[np.ndarray, np.ndarray]:
     """Per-row reduction tables ``(pure, pred)`` for a packed history.
 
     pure: bool[R, W] — active slot holds a pure (state-preserving) op.
     pred: i32[R, W]  — canonical-chain predecessor slot (-1 when none):
     slot j may linearize in row r only once ``pred[r, j]``'s bit is set.
-    Cached on the PackedHistory after first computation.
+    Cached on the PackedHistory after first computation. With
+    ``JEPSEN_TPU_FAST_PACK`` on (the default) the chains come from
+    :func:`_chain_tables_vec`, else from the per-row lexsort below; both
+    give the same tables.
     """
     cached = getattr(p, "_reduction_tables", None)
     if cached is not None:
@@ -476,6 +964,26 @@ def reduction_tables(p: PackedHistory) -> tuple[np.ndarray, np.ndarray]:
     if p.kernel is None or R == 0:
         out = (np.zeros((R, W), bool), np.full((R, W), -1, np.int32))
         p._reduction_tables = out
+        return out
+
+    t0 = time.perf_counter()
+    if fast_pack_enabled():
+        n = len(p.ops)
+        ret_row = np.full(n, -1, np.int64)
+        ret_row[np.asarray(p.ret_op)] = np.arange(R)
+        fv = getattr(p, "_op_fv", (None, None))
+        if len(fv) > 2:
+            inv_pos = fv[2].astype(np.int64, copy=False)
+        else:
+            inv_pos = np.fromiter((o.invoke_pos for o in p.ops),
+                                  np.int64, n)
+        crashed_op = ret_row < 0
+        ordkey = np.where(crashed_op, np.int64(R + 2) + inv_pos, ret_row)
+        out = _chain_tables_vec(p.active, p.slot_f, p.slot_v, p.slot_op,
+                                ordkey, crashed_op, fv[0], fv[1])
+        p._reduction_tables = out
+        _pack_stats["reduction_s"] += time.perf_counter() - t0
+        _pack_stats["reduction_calls"] += 1
         return out
 
     pure = p.active & (p.slot_f == K.F_READ)
@@ -520,6 +1028,8 @@ def reduction_tables(p: PackedHistory) -> tuple[np.ndarray, np.ndarray]:
                       axis=1)
     out = (pure, pred)
     p._reduction_tables = out
+    _pack_stats["reduction_s"] += time.perf_counter() - t0
+    _pack_stats["reduction_calls"] += 1
     return out
 
 
