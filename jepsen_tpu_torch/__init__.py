@@ -1,4 +1,5 @@
-"""jepsen_tpu_torch — the linearizability checker on PyTorch and CUDA.
+"""jepsen_tpu_torch — the linearizability and transaction checkers on
+PyTorch and CUDA.
 
 A port of :mod:`jepsen_tpu`'s linearizability checker to an NVIDIA Hopper
 GPU: the register, mutex, set and queue models, history packing, the
@@ -6,8 +7,11 @@ dense config-space bitmap engine with its hand-written CUDA kernel
 (``csrc/dense_chunk.cu``), the sparse frontier engine's bands with theirs
 (``csrc/psort.cu``, ``csrc/psort_fused.cu``), the CPU oracle,
 counterexample replay, the ``linearizable`` checker and its lift to
-independent keys (:mod:`jepsen_tpu_torch.independent`). It imports torch
-and numpy only.
+independent keys (:mod:`jepsen_tpu_torch.independent`). Beside it the
+transaction checker (:mod:`jepsen_tpu_torch.txn`, ``checker.txn_cycles``):
+Elle's dependency-graph cycle search over list-append histories, its SCC
+program one launch of a CUDA kernel (``csrc/txn_scc.cu``). It imports
+torch and numpy only.
 
 Entry points take ``device=``. Without one they run on the card, and
 raise if there is none; pass ``device="cpu"`` to run the plain torch

@@ -1,10 +1,12 @@
-"""History validators: the linearizability checker.
+"""History validators: the linearizability and transaction checkers.
 
 A checker validates a recorded history against a model and returns a
 result map with a ``"valid?"`` key — ``True``, ``False`` or
 ``"unknown"``; ``merge_valid`` combines such values. ``linearizable``
 dispatches to :mod:`jepsen_tpu_torch.lin` with the result contract of
-:func:`jepsen_tpu.checker.linearizable`.
+:func:`jepsen_tpu.checker.linearizable`; ``txn_cycles`` to
+:mod:`jepsen_tpu_torch.txn` with that of
+:func:`jepsen_tpu.checker.txn_cycles`.
 """
 
 from __future__ import annotations
@@ -125,4 +127,34 @@ def linearizable(algorithm: str = "competition",
     # Where the device engine runs; a lifted checker's key batch runs
     # there too (jepsen_tpu_torch.independent).
     ck.device = device
+    return ck
+
+
+def txn_cycles(anomalies=None, consistency: str = "serializable",
+               algorithm: str = "gpu", realtime: bool | None = None,
+               device=None) -> Checker:
+    """Validates transactional isolation of list-append histories by
+    dependency-graph cycle search (:mod:`jepsen_tpu_torch.txn` — Elle's
+    analysis in Adya's formalization; the SQL suites' checker).
+
+    ``anomalies`` — explicit anomaly tuple (e.g. ``("G0", "G1c")``), or
+    None to derive from ``consistency`` ("serializable",
+    "snapshot-isolation", "strict-serializable", "read-committed").
+    ``algorithm`` — ``"gpu"`` (the device SCC engine, with the host
+    Tarjan for a tier whose iteration ceiling fires) or ``"cpu"`` (the
+    oracle). ``device`` — where the device engine runs: the card by
+    default; ``"cpu"`` runs the kernel's plain torch version.
+    ``realtime`` — force realtime edges on/off (default: on exactly for
+    strict-serializable)."""
+
+    def check(test, model, history, opts):
+        from jepsen_tpu_torch import txn
+
+        return txn.check(list(history), anomalies=anomalies,
+                         consistency=consistency, realtime=realtime,
+                         algorithm=algorithm, device=device)
+
+    ck = FnChecker(check)
+    ck.is_txn_cycles = True
+    ck.algorithm = algorithm
     return ck
