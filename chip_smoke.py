@@ -188,9 +188,36 @@ raises on a failure:
     host path; the phase must take under 60 s. The device packer is not
     on the main path: it does not beat the host pack (PERF.md).
 
+23. the transaction checker (``[txn-*]``): the SCC kernel bit-exact
+    against its plain version on seeded graphs, ``txn_c30`` through
+    ``txn.check(algorithm="gpu")`` (one launch), a healthy history (no
+    launch), a strict-serializable case, and the kernel's time;
+24. the supervised runtime (``[supervise-*]``; no kernel): the pair
+    crash-dom headline checked with a checkpoint written at every
+    committed row (the checkpoint's overhead: its write time), resumed
+    from a copy of its first host-kind checkpoint (the same verdict, max
+    cap and final frontier, ``resumed-from-row`` the saved row); the
+    single-key crash-dom headline the same way from a chunk-kind
+    checkpoint past half its rows; the corrupted window-34 history
+    resumed from its first host-kind checkpoint with a dispatch deadline
+    of 0.1 ms, every real attempt of both host-row rungs overrunning and
+    abandoned, the search ending in an honest ``overflow: wedge`` that
+    keeps the checkpoint, and a re-run resuming from it to the
+    uninterrupted dead row and op; wedges and faults injected at
+    ``chunk``, ``spike``, ``host-fixpoint``, ``host-pass``, ``txn-scc``
+    and ``pack-dev``, each routing as on the CPU under the card's rule
+    (no rung moves work to the host); and a real, sticky CUDA fault in a
+    child process (every sparse-engine launch reads address 16), which
+    the check raises after recording the chunk's shape. Every earlier
+    phase from 3 on runs inside ``supervised_clean``, which fails on any
+    watchdog trip, fault or quarantine skip and logs the phase's
+    supervised dispatches and their hand-off seconds (the watchdog's
+    overhead); the run's quarantine ledger is a fresh temporary file.
+
 ``python3 chip_smoke.py --bands`` runs the build and phase 21 alone,
 printing its kernels' entries and the card, and no contract line;
-``--pack`` the build and phase 22 alone.
+``--pack`` the build and phase 22 alone, ``--txn`` phase 23 and
+``--supervise`` phase 24.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2340,6 +2367,11 @@ def dom_bound(n: int, out_n: int, words: int, rounds_work, survivors: int):
     return max(t_b, t_o), "bytes" if t_b > t_o else "operations"
 
 
+# A directory of the run's own (the quarantine ledger and phase 24's
+# checkpoints), made and removed by ``main``.
+SCRATCH: Path | None = None
+
+
 def dom_headline(dev, model, h, pair: bool, rechecks: bool, spies=()):
     """Phases 16 / 17: a crash-dom headline through
     ``checker.linearizable(algorithm="gpu")`` with the launch counts set to
@@ -3897,20 +3929,457 @@ def txn_phases(dev, smi: str) -> dict:
                     "e2e_s": t_e2e, "plain_check_s": t_cpu}}
 
 
+# --- the supervised runtime (phase 24) ----------------------------------------
+
+# The sites that route around a wedge or fault, each driven on the card and
+# on the CPU under the same injection; the small histories of the CPU tests
+# (tests/test_torch_supervise.py).
+INJECT_BAND = dict(n_ops=60, concurrency=6, seed=1, crash_prob=0.25)
+INJECT_BAND_CAPS = dict(cap_schedule=(12,), host_caps=(8, 64, 512))
+INJECT_SPIKE = dict(n_ops=60, concurrency=16, seed=7, value_range=5)
+INJECT_SPIKE_CAPS = dict(cap_schedule=(256,), spike_caps=(2048,))
+INJECT_MUTEX = dict(n_ops=400, concurrency=5, seed=2, crash_prob=0.02,
+                    max_crashes=6)
+# The deadline of the real trip: far below one host-row dispatch.
+TRIP_DEADLINE_S = 1e-4
+# The options of phase 24's checkpointed headlines, host kind and chunk
+# kind: the defaults on the card. A CPU rehearsal of the phase sets small
+# caps and chunks here (the verify skill's notes).
+HOST_RESUME_KW: dict = {}
+CHUNK_RESUME_KW: dict = {}
+
+
+@contextlib.contextmanager
+def supervised_clean(tag: str):
+    """A phase that must see no watchdog trip, fault or quarantine skip;
+    logs its supervised dispatches and their hand-off seconds."""
+    from jepsen_tpu_torch.lin import supervise
+
+    supervise.reset_totals()
+    t0 = time.perf_counter()
+    yield
+    tot = supervise.totals()
+    wall = time.perf_counter() - t0
+    log(f"[supervise-clean] {tag}: {tot['calls']} supervised dispatches, "
+        f"hand-off {tot['handoff_s']:.4f}s of {wall:.1f}s "
+        f"({tot['handoff_s'] / max(wall, 1e-9):.4%}); trips "
+        f"{tot['watchdog_trips']} faults {tot['faults']} quarantine skips "
+        f"{tot['quarantine_skips']}; sites "
+        + ", ".join(f"{k} {v['calls']} ({v['s']:.2f}s, max {v['max_s']:.4f}s)"
+                    for k, v in sorted(supervise.site_times().items())))
+    if tot["watchdog_trips"] or tot["faults"] or tot["quarantine_skips"]:
+        raise AssertionError(f"{tag}: supervision tripped outside phase 24: "
+                             f"{tot}")
+
+
+@contextlib.contextmanager
+def env(**kw):
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fresh_ledger(tmp: Path, name: str) -> str:
+    path = str(tmp / f"{name}.json")
+    os.environ["JEPSEN_TPU_QUARANTINE"] = path
+    return path
+
+
+def timed_check(p, dev, **kw):
+    import torch
+
+    from jepsen_tpu_torch.lin import bfs, supervise
+
+    supervise.reset_totals()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = bfs.check_packed(p, device=dev, **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, supervise.totals()
+
+
+def resume_checkpoint(p, tmp: Path, tag: str, kind: str):
+    """A Checkpointer writing at every committed row into ``tmp``, whose
+    hook copies aside its first ``kind`` checkpoint (a chunk-kind one
+    only past half the rows). Returns (the Checkpointer, {"path": the
+    copy, "row": [its row]})."""
+    import shutil
+
+    from jepsen_tpu_torch.lin import supervise
+
+    path = str(tmp / f"{tag}.ckpt.npz")
+    aside = {"path": str(tmp / f"{tag}.aside.npz"), "row": []}
+    ckpt = supervise.Checkpointer(path, supervise.history_fingerprint(p),
+                                  every_s=0)
+
+    def on_save(k, row):
+        if k == kind and not aside["row"] and \
+                (kind == "host" or row >= p.R // 2):
+            shutil.copy(path, aside["path"])
+            aside["row"].append(row)
+
+    ckpt.on_save = on_save
+    return ckpt, aside
+
+
+def resume_phase(dev, tmp: Path, tag: str, kind: str, hist: dict,
+                 kw: dict) -> dict:
+    """A crash-dom headline checked once with a checkpoint written at
+    every committed row, then resumed from a copy of its first ``kind``
+    checkpoint: the same verdict, max cap and final frontier, and
+    ``resumed-from-row`` the saved row. The checkpoint's overhead is the
+    time the checked run spent writing (``Checkpointer.seconds``)."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import prepare, synth
+
+    p = prepare.prepare(m.cas_register(),
+                        synth.generate_partitioned_register_history(**hist))
+    ckpt, aside = resume_checkpoint(p, tmp, tag, kind)
+    first, t_first, tot = timed_check(p, dev, checkpoint=ckpt, **kw)
+    if not aside["row"] or os.path.exists(ckpt.path):
+        raise AssertionError(f"[{tag}] no {kind} checkpoint was copied, or "
+                             f"the definite verdict kept its own "
+                             f"({ckpt.writes} writes)")
+    r, t, rtot = timed_check(p, dev, resume=aside["path"], **kw)
+    keys = ("valid?", "max-cap", "final-frontier-size")
+    if {k: r.get(k) for k in keys} != {k: first.get(k) for k in keys} or \
+            r.get("resumed-from-row") != aside["row"][0]:
+        raise AssertionError(f"[{tag}] the resume differs: {r} against "
+                             f"{first}")
+    hs = first.get("host-stats") or {}
+    log(f"[{tag}] R={p.R} window={p.window}: the checkpointed run "
+        f"{t_first:.3f}s, {ckpt.writes} writes in {ckpt.seconds:.4f}s "
+        f"({ckpt.seconds / t_first:.4%} of the run, "
+        f"{ckpt.seconds / max(ckpt.writes, 1) * 1e3:.2f} ms a write), "
+        f"{tot['calls']} supervised dispatches, hand-off "
+        f"{tot['handoff_s']:.4f}s, "
+        f"{ {k: first.get(k) for k in keys} }, host rows {hs.get('rows')}; "
+        f"resumed from the {kind} checkpoint at row {aside['row'][0]} in "
+        f"{t:.3f}s ({rtot['calls']} dispatches)")
+    return {"t_ckpt_run_s": t_first, "writes": ckpt.writes,
+            "ckpt_write_s": ckpt.seconds, "calls": tot["calls"],
+            "handoff_s": tot["handoff_s"], "row": aside["row"][0],
+            "resume_s": t, "host_stats": hs}
+
+
+def deadline_trip_phase(dev, tmp: Path, model) -> dict:
+    """The corrupted window-34 history killed at its first host-kind
+    checkpoint and resumed with every dispatch's deadline far below its
+    time: each real attempt of both host-row rungs overruns and is
+    abandoned, retried, and abandoned again (a per-pass dispatch that
+    beats the deadline carries its row on). On the card the search then
+    ends in an honest wedge that keeps its newest checkpoint (on the CPU
+    the CPU oracle takes the rows); a re-run with the default deadline
+    resumes from it to the uninterrupted run's dead row and op."""
+    import threading
+
+    from jepsen_tpu_torch.lin import bfs, prepare, supervise, synth
+
+    fresh_ledger(tmp, "trip")
+    h = synth.corrupt_history(synth.generate_partitioned_register_history(
+        **HOSTROW), seed=HOSTROW_CORRUPT_SEED)
+    p = prepare.prepare(model, h)
+    kw = dict(HOSTROW_CAPS, explain=True, device=dev)
+    full = bfs.check_packed(p, **kw)
+    path = str(tmp / "trip.ckpt.npz")
+    ckpt = supervise.Checkpointer(path, supervise.history_fingerprint(p),
+                                  every_s=0)
+    cancel = threading.Event()
+    saved = []
+
+    def on_save(kind, row):
+        if kind == "host" and not saved:
+            saved.append(row)
+            cancel.set()
+
+    ckpt.on_save = on_save
+    bfs.check_packed(p, cancel=cancel, checkpoint=ckpt, **kw)
+    supervise.reset_totals()
+    t0 = time.perf_counter()
+    with env(JEPSEN_TPU_DISPATCH_DEADLINE_S=TRIP_DEADLINE_S):
+        r = bfs.check_packed(p, checkpoint=path, **kw)
+    t = time.perf_counter() - t0
+    tot = supervise.totals()
+    # The tripped run keeps its newest checkpoint: a host-pass that beat
+    # the deadline may have committed rows past the first one.
+    kept = supervise.load_checkpoint(path, ckpt.fingerprint)
+    # Every abandoned attempt ends at its next pass boundary.
+    if not supervise.join_abandoned(60.0):
+        raise AssertionError("[supervise-deadline] an abandoned attempt "
+                             "did not stop")
+    hs = r.get("host-stats") or {}
+    on_card = not supervise.host_rungs(dev)
+    r2 = bfs.check_packed(p, checkpoint=path, **kw) if on_card else r
+    log(f"[supervise-deadline] window={p.window}: killed at row "
+        f"{saved[0]}; resumed with a {TRIP_DEADLINE_S}s deadline in "
+        f"{t:.3f}s: valid?={r['valid?']} overflow={r.get('overflow')} "
+        f"trips={tot['watchdog_trips']} host-stats={hs} ledger="
+        f"{sorted(supervise.load_ledger())}; re-run: valid?="
+        f"{r2['valid?']} dead-row={r2.get('dead-row')} (uninterrupted "
+        f"{full.get('dead-row')}), resumed-from-row "
+        f"{r2.get('resumed-from-row')}")
+    if r.get("resumed-from-row") != saved[0] or tot["watchdog_trips"] < 4 \
+            or {e["site"] for e in hs.get("supervise_events", [])} != \
+            {"host-fixpoint", "host-pass"}:
+        raise AssertionError(f"[supervise-deadline] no real trip at both "
+                             f"host-row rungs: {r} {tot}")
+    if on_card and ((r["valid?"], r.get("overflow"), hs.get("cpu_rows", 0))
+                    != ("unknown", "wedge", 0) or kept is None):
+        raise AssertionError(f"[supervise-deadline] not an honest wedge "
+                             f"that keeps its checkpoint: {r}")
+    if (r2["valid?"], r2.get("dead-row"), r2.get("op")) != \
+            (False, full.get("dead-row"), full.get("op")) or \
+            r2.get("resumed-from-row") != (kept or {"row": saved[0]})["row"] \
+            or os.path.exists(path):
+        raise AssertionError(f"[supervise-deadline] {r2} vs {full}")
+    return {"trips": tot["watchdog_trips"], "tripped_s": t,
+            "row": saved[0], "dead_row": r2.get("dead-row")}
+
+
+# A child process that makes every launch of the sparse engine's kernels
+# read from address 16: the first chunk's fetch meets a real, sticky CUDA
+# fault (an illegal address). It prints what the check did.
+FAULT_CHILD = r"""
+import json, sys
+from jepsen_tpu_torch import models as m
+from jepsen_tpu_torch.lin import bfs, prepare, psort_cuda, psort_fused_cuda
+from jepsen_tpu_torch.lin import supervise, synth
+
+class BadInput:
+    def __init__(self, lib):
+        self._lib = lib
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.endswith("_launch"):
+            return fn
+        return lambda first, *rest: fn(16, *rest)
+
+p = prepare.prepare(m.cas_register(),
+                    synth.generate_register_history(**json.loads(sys.argv[1])))
+for mod in (psort_cuda, psort_fused_cuda):
+    mod._lib = BadInput(mod._load())
+try:
+    r = bfs.check_packed(p, device="cuda")
+    out = {"raised": None, "valid?": r.get("valid?"),
+           "overflow": r.get("overflow")}
+except Exception as e:
+    out = {"raised": type(e).__name__, "error": str(e)[:300]}
+out["ledger"] = supervise.load_ledger()
+print(json.dumps(out), flush=True)
+"""
+FAULT_HIST = dict(n_ops=400, concurrency=24, seed=3)
+
+
+def real_fault_phase(tmp: Path) -> dict:
+    """A real CUDA fault, in a child process (it poisons the process's
+    context): the check raises the CUDA error, after recording the
+    faulted chunk's shape in the ledger."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent
+    ledger = str(tmp / "fault.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", FAULT_CHILD, json.dumps(FAULT_HIST)],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root),
+                 JEPSEN_TPU_QUARANTINE=ledger))
+    t = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines else {}
+    log(f"[supervise-fault] child exit {proc.returncode} in {t:.1f}s: "
+        f"{got}" + (f" | stderr {proc.stderr[-600:]}" if not got else ""))
+    led = got.get("ledger") or {}
+    # The fault shows at the fetch (torch's "illegal memory access") or at
+    # the next launch (its error code, 700).
+    err = got.get("error", "")
+    if not got.get("raised") or \
+            ("illegal memory access" not in err and "error 700" not in err) \
+            or not any(k.startswith("chunk|") and e.get("faulted")
+                       for k, e in led.items()):
+        raise AssertionError(f"[supervise-fault] a real fault did not "
+                             f"raise after its shape was recorded: {got}")
+    return {"raised": got["raised"], "error": got["error"],
+            "ledger": sorted(led), "child_s": t}
+
+
+def injected_phase(dev, tmp: Path) -> dict:
+    """Injected wedges and faults at every site, on the card and on the
+    CPU under the card's routing (no rung moves work to the host): each
+    routes the same way (verdict, honest unknown or raise, trips, ledger
+    keys)."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch import txn
+    from jepsen_tpu_torch.lin import bfs, pack_dev, prepare, supervise, synth
+    from jepsen_tpu_torch.txn import synth as tsynth
+
+    band = prepare.prepare(m.cas_register(),
+                           synth.generate_register_history(**INJECT_BAND))
+    spike = prepare.prepare(m.cas_register(),
+                            synth.generate_register_history(**INJECT_SPIKE))
+    th = tsynth.seeded_anomaly_history("G-single")
+    mutex = pack_dev.prepack(m.mutex(),
+                             synth.generate_mutex_history(**INJECT_MUTEX))
+
+    def sparse(p, caps):
+        return lambda d: bfs.check_packed(p, device=d, explain=True, **caps)
+
+    def run_txn(d):
+        return txn.check(th, algorithm="gpu", device=d)
+
+    def run_pack(d):
+        pack_dev.reset_dev_stats()
+        try:
+            packed = pack_dev.materialize(mutex, device=d)
+        except (RuntimeError, supervise.WedgedDispatch) as e:
+            return {"raised": type(e).__name__,
+                    "dev_stats": pack_dev.dev_stats()}
+        return {"tables": [getattr(packed, f).tobytes() for f in
+                           ("ret_slot", "active", "slot_f", "slot_v",
+                            "slot_op", "crashed")],
+                "dev_stats": pack_dev.dev_stats()}
+
+    cases = [("chunk", "fault", sparse(band, INJECT_BAND_CAPS)),
+             ("chunk", "wedge", sparse(band, INJECT_BAND_CAPS)),
+             ("spike", "fault", sparse(spike, INJECT_SPIKE_CAPS)),
+             ("spike", "wedge", sparse(spike, INJECT_SPIKE_CAPS)),
+             ("host-fixpoint", "wedge", sparse(band, INJECT_BAND_CAPS)),
+             ("host-fixpoint", "fault", sparse(band, INJECT_BAND_CAPS)),
+             ("host-pass", "wedge", sparse(band, INJECT_BAND_CAPS)),
+             ("host-pass", "fault", sparse(band, INJECT_BAND_CAPS)),
+             ("txn-scc", "wedge", run_txn), ("txn-scc", "fault", run_txn),
+             ("pack-dev", "wedge", run_pack),
+             ("pack-dev", "fault", run_pack)]
+
+    def outcome(r):
+        if "dev_stats" in r:
+            return {**r, "dev_stats": {k: v for k, v in r["dev_stats"].items()
+                                       if not k.endswith("_s")}}
+        keep = ("valid?", "dead-row", "op", "final-frontier-size",
+                "max-cap", "overflow", "fallbacks", "anomaly-types")
+        out = {k: r.get(k) for k in keep}
+        st = r.get("host-stats") or r.get("device-stats") or \
+            r.get("stats") or {}
+        out.update({k: st.get(k, 0) for k in (
+            "watchdog_trips", "faults", "quarantine_skips", "cpu_rows")})
+        return out
+
+    host_rungs = supervise.host_rungs
+    summary = {}
+    for i, (site, kind, run) in enumerate(cases):
+        got = {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            path = fresh_ledger(tmp, f"inject{i}-{where}")
+            supervise.reset_injections()
+            if site == "host-pass":
+                # The fused rung quarantined at every host cap: the rows
+                # run on the per-pass rung, where the injection lands.
+                for cap in INJECT_BAND_CAPS["host_caps"]:
+                    supervise.record_fault(supervise.shape_key(
+                        "host-fixpoint", cap=cap, window=band.window,
+                        kernel="cas-register"), "fault")
+            if kind == "fault":
+                supervise.inject_fault(site, 1)
+            else:
+                # Every attempt of the first dispatch at the site (the
+                # wedge is a fake thunk that never touches the device).
+                supervise.inject_wedge(site, 2, deadline_s=0.05)
+            supervise.host_rungs = lambda device: False
+            try:
+                got[where] = (outcome(run(d)),
+                              sorted(supervise.load_ledger(path)))
+            finally:
+                supervise.host_rungs = host_rungs
+                supervise.reset_injections()
+        card, host = got["card"], got["cpu"]
+        log(f"[supervise-inject] {site} {kind}: card "
+            f"{ {k: v for k, v in card[0].items() if k != 'tables'} } "
+            f"ledger {card[1]}")
+        if card != host:
+            raise AssertionError(f"[supervise-inject] {site} {kind}: card "
+                                 f"{card} != cpu {host}")
+        if not any(k.startswith(site + "|") for k in card[1]):
+            raise AssertionError(f"[supervise-inject] {site} {kind}: the "
+                                 "injection recorded nothing")
+        summary[f"{site}/{kind}"] = card[1]
+    return summary
+
+
+def supervise_phases(dev, smi: str) -> dict:
+    """Phase 24: the supervised runtime on the card (see the module
+    docstring). Returns its measurements."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import supervise
+
+    t_phase = time.perf_counter()
+    tmp = SCRATCH / "supervise"
+    tmp.mkdir()
+    ledger0 = os.environ.get("JEPSEN_TPU_QUARANTINE")
+    out = {"card": smi}
+    try:
+        # Host-kind resume at full width (the pair crash-dom headline) and
+        # chunk-kind (the single-key one).
+        fresh_ledger(tmp, "resume")
+        out["pair_dom"] = resume_phase(dev, tmp, "pair-dom", "host",
+                                       DOM_PAIR, HOST_RESUME_KW)
+        out["single_dom"] = resume_phase(dev, tmp, "single-dom", "chunk",
+                                         DOM_SINGLE, CHUNK_RESUME_KW)
+        out["deadline"] = deadline_trip_phase(dev, tmp, m.cas_register())
+        out["inject"] = injected_phase(dev, tmp)
+        if dev.type == "cuda":
+            out["real_fault"] = real_fault_phase(tmp)
+    finally:
+        supervise.reset_injections()
+        os.environ["JEPSEN_TPU_QUARANTINE"] = ledger0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[supervise] phase 24 in {out['phase_s']:.1f}s | {smi} | "
+        + json.dumps(out, default=str))
+    return out
+
+
 def main(device: str = "cuda", bands_only: bool = False,
-         pack_only: bool = False, txn_only: bool = False) -> int:
+         pack_only: bool = False, txn_only: bool = False,
+         supervise_only: bool = False) -> int:
     """Run every phase on ``device`` ("cpu" only rehearses the control
     flow with the plain versions in place of the kernels), or with
     ``bands_only`` the build and phase 21 alone, with ``pack_only`` the
-    build and phase 22 alone, or with ``txn_only`` the build and phase 23
-    alone."""
+    build and phase 22 alone, with ``txn_only`` the build and phase 23
+    alone, or with ``supervise_only`` the build and phase 24 alone."""
+    import tempfile
+
     import torch
 
     if device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # The run's quarantine ledger is a fresh file of its own: a shape an
+    # earlier run recorded must not route this run past a kernel.
+    global SCRATCH
+    ledger_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    SCRATCH = Path(ledger_dir)
+    os.environ["JEPSEN_TPU_QUARANTINE"] = os.path.join(ledger_dir,
+                                                       "quarantine.json")
+    try:
+        return _main(device, bands_only, pack_only, txn_only,
+                     supervise_only)
+    finally:
+        import shutil
+
+        shutil.rmtree(ledger_dir, ignore_errors=True)
+
+
+def _main(device: str, bands_only: bool, pack_only: bool, txn_only: bool,
+          supervise_only: bool) -> int:
     import numpy as np
+    import torch
 
     from jepsen_tpu_torch import _build, _u32, checker
     from jepsen_tpu_torch import models as m
@@ -3947,6 +4416,11 @@ def main(device: str = "cuda", bands_only: bool = False,
         return 0
     if txn_only:
         print(json.dumps({"kernels": [txn_phases(dev, smi)]}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if supervise_only:
+        print(json.dumps({"supervise": supervise_phases(dev, smi)}),
+              flush=True)
         print(smi, flush=True)
         return 0
     for name in ("dense_chunk", "psort", "psort_fused", "txn_scc"):
@@ -3990,6 +4464,8 @@ def main(device: str = "cuda", bands_only: bool = False,
             widths.append(w)
 
     # 3. the headline through the user's entry point
+    dense_clean = supervised_clean("phases 3-6")
+    dense_clean.__enter__()
     t0 = time.perf_counter()
     h = synth.generate_register_history(**HEADLINE)
     t_synth = time.perf_counter() - t0
@@ -4114,6 +4590,7 @@ def main(device: str = "cuda", bands_only: bool = False,
         f"({plain_ms / PLAIN_ROWS * 1e3:.1f} us/row), bound {b_ms:.6f} ms "
         f"({b_by}); no single PyTorch call computes this function")
 
+    dense_clean.__exit__(None, None, None)
     kernels = [{
         "name": "dense_chunk", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/dense_chunk.cu",
@@ -4124,19 +4601,27 @@ def main(device: str = "cuda", bands_only: bool = False,
         "bit_exact": True, "widths": widths, "path": dense_cuda.kernel_path(w),
         "launch_ms": launch_ms, "launch_bound_ms": sum(chunk_bound) /
         len(chunk_bound), "shape": {"w": w, "ns": ns, "rows": PLAIN_ROWS}}]
-    kernels += sparse_phases(dev)
-    kernels += pair_phases(dev)
-    dom_entries, dom_compact_paths = crashdom_phases(dev)
+    with supervised_clean("phases 7-10"):
+        kernels += sparse_phases(dev)
+    with supervised_clean("phases 11-14"):
+        kernels += pair_phases(dev)
+    with supervised_clean("phases 15-19"):
+        dom_entries, dom_compact_paths = crashdom_phases(dev)
     kernels += dom_entries
     next(k for k in kernels if k["name"] == "compact_keys")[
         "crashdom_headline_paths"] = dom_compact_paths
-    kernels += batch_phases(dev, smi)
-    bands = bands_phases(dev)
+    with supervised_clean("phase 20"):
+        kernels += batch_phases(dev, smi)
+    with supervised_clean("phase 21"):
+        bands = bands_phases(dev)
     for k in kernels:
         if k["name"] in bands:
             k["bands_mutex"] = bands[k["name"]]
-    pack_phases(dev, smi)
-    kernels.append(txn_phases(dev, smi))
+    with supervised_clean("phase 22"):
+        pack_phases(dev, smi)
+    with supervised_clean("phase 23"):
+        kernels.append(txn_phases(dev, smi))
+    supervise_phases(dev, smi)
     return finish(kernels, smi, kind)
 
 
@@ -4153,8 +4638,11 @@ def finish(kernels, smi: str, kind: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--bands"], ["--pack"], ["--txn"]):
-        sys.exit("usage: chip_smoke.py [--bands | --pack | --txn]")
+    if sys.argv[1:] not in ([], ["--bands"], ["--pack"], ["--txn"],
+                            ["--supervise"]):
+        sys.exit("usage: chip_smoke.py [--bands | --pack | --txn | "
+                 "--supervise]")
     sys.exit(main(bands_only=sys.argv[1:] == ["--bands"],
                   pack_only=sys.argv[1:] == ["--pack"],
-                  txn_only=sys.argv[1:] == ["--txn"]))
+                  txn_only=sys.argv[1:] == ["--txn"],
+                  supervise_only=sys.argv[1:] == ["--supervise"]))

@@ -7,7 +7,11 @@ package. Each ``csrc/<name>.cc`` (host code: the native packing walk) is
 compiled the same way by the host compiler, ``g++``. The library's file
 name carries a hash of its source and flags, so an edited source is
 rebuilt rather than a stale library loaded. Several libraries build in
-parallel: one compiler per source, all started together.
+parallel: one compiler per source, all started together. A failed build
+raises :class:`BuildError`, which the dispatch watchdog never takes for a
+device fault (:func:`jepsen_tpu_torch.lin.supervise.run_guarded`); a
+kernel's wrapper raises :class:`LaunchError` for the CUDA error code its
+launch returned, which it does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, dict] = {}
 
 
+class BuildError(RuntimeError):
+    """A native source did not build (or its compiler is missing)."""
+
+
+class LaunchError(RuntimeError):
+    """A kernel's launch returned a CUDA error code."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -42,7 +54,7 @@ def nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+    raise BuildError("nvcc not found: the CUDA kernels build only where "
                        "the CUDA toolkit is installed")
 
 
@@ -50,7 +62,7 @@ def cxx() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError("g++ not found: the native packing walk builds with "
+    raise BuildError("g++ not found: the native packing walk builds with "
                        "the host's C++ compiler")
 
 
@@ -99,7 +111,7 @@ def build(names) -> None:
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                            "ptxas": log}
     if failed:
-        raise RuntimeError("native build failed:\n" + "\n".join(failed))
+        raise BuildError("native build failed:\n" + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,6 +15,13 @@ its reason), the end-to-end time, the device check time (end to end less
 the separately timed pack), ``engine-stats`` and ``host-stats``, as the
 last line of standard output (JSON). Needs one CUDA card and ``nvcc``.
 Exits 2 without a card.
+
+With ``JEPSEN_TPU_CKPT=<path>`` the sparse engine checkpoints its
+frontier at committed row boundaries (every ``JEPSEN_TPU_CKPT_EVERY_S``
+seconds, 60 by default) and, when the file exists, resumes from it: a
+killed run re-run with the same setting continues mid-history, with the
+same verdict, and the result line carries ``resumed-from-row``. The file
+is deleted on a definite verdict.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ def main() -> int:
         return 2
     from jepsen_tpu_torch import _build, checker
     from jepsen_tpu_torch import models as m
-    from jepsen_tpu_torch.lin import prepare, psort, synth
+    from jepsen_tpu_torch.lin import prepare, psort, supervise, synth
 
     smi = nvidia_smi_line()
     log(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -66,7 +73,8 @@ def main() -> int:
     walk = prepare.pack_stats()["mode"]
     log(f"[config5] ops={OPS} window={p.window} R={p.R} crashed="
         f"{len(p.crashed_ops)} synth={t_synth:.3f}s prepare={t_prep:.3f}s "
-        f"walk={walk} budget={BUDGET_S:.0f}s")
+        f"walk={walk} budget={BUDGET_S:.0f}s checkpoint="
+        f"{supervise.ckpt_path()}")
     for k in psort.LAUNCHES:
         psort.LAUNCHES[k] = 0
     done = threading.Event()
@@ -95,6 +103,8 @@ def main() -> int:
            "engine-stats": r.get("engine-stats"),
            "host-stats": r.get("host-stats"),
            "launches": dict(psort.LAUNCHES), "card": smi}
+    if "resumed-from-row" in r:
+        out["resumed-from-row"] = r["resumed-from-row"]
     print(json.dumps(out), flush=True)
     return 0
 

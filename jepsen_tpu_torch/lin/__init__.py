@@ -17,6 +17,8 @@
   verdicts.
 - :mod:`jepsen_tpu_torch.lin.batched` — many independent keys in one
   device search (:mod:`jepsen_tpu_torch.independent`'s checker).
+- :mod:`jepsen_tpu_torch.lin.supervise` — the dispatch watchdog, the
+  fault-shape quarantine ledger and frontier checkpoint/resume.
 
 ``analysis(model, history)`` returns ``{"valid?": bool, "op": ...,
 "configs": [...], "final-paths": [...]}``, the result shape of
@@ -41,9 +43,11 @@ def analysis(model, history, algorithm: str = "competition", device=None,
     algorithm: ``"gpu"`` (the device engine), ``"cpu"`` (the host
     reference), or ``"competition"`` (race both; the first definite
     verdict wins). ``device`` is where the device engine runs (default:
-    the card; see :func:`jepsen_tpu_torch.resolve_device`)."""
+    the card; see :func:`jepsen_tpu_torch.resolve_device`).
+    ``checkpoint`` and ``resume`` go to the sparse engine
+    (:func:`jepsen_tpu_torch.lin.bfs.check_packed`)."""
     known = {"witness", "cancel", "chunk", "cap_schedule", "host_caps",
-             "explain"}
+             "explain", "checkpoint", "resume"}
     if kw.keys() - known:
         raise TypeError(f"unknown analysis options {kw.keys() - known}")
     if algorithm not in ALGORITHMS:
@@ -87,13 +91,19 @@ def device_check_packed(packed: PackedHistory, cancel=None, device=None,
     engine when window and state count fit its bounds, else the sparse
     frontier engine, which answers a history with no step kernel or a
     window past its bitset with an honest unknown naming why
-    (:func:`jepsen_tpu_torch.lin.bfs.band_error`)."""
+    (:func:`jepsen_tpu_torch.lin.bfs.band_error`). ``checkpoint`` and
+    ``resume`` are the sparse engine's (a dense history decides in
+    seconds); an incremental call (``frontier``, ``frontier_row``,
+    ``partial``) always goes to the sparse engine, whose multiword layout
+    the carried frontier is in."""
     from jepsen_tpu_torch.lin import bfs, dense
 
-    known = {"chunk", "cap_schedule", "host_caps", "explain"}
+    known = {"chunk", "cap_schedule", "host_caps", "explain", "checkpoint",
+             "resume", "frontier", "frontier_row", "partial"}
     if kw.keys() - known:
         raise TypeError(f"unknown device-check options {kw.keys() - known}")
-    if dense.plan(packed) is not None:
+    incremental = kw.get("partial") or kw.get("frontier") is not None
+    if not incremental and dense.plan(packed) is not None:
         dkw = {k: v for k, v in kw.items() if k in ("chunk", "explain")}
         return dense.check_packed(packed, cancel=cancel, device=device,
                                   **dkw)
@@ -110,10 +120,10 @@ def _competition(packed: PackedHistory, cancel=None, device=None,
     from jepsen_tpu_torch.lin import cpu
 
     cpu_kw = {k: v for k, v in kw.items() if k == "witness"}
-    # The device options the reference's racer gets, as far as the port
-    # takes them (the reference also forwards checkpoint and resume).
+    # The device options the reference's racer gets.
     dev_kw = {k: v for k, v in kw.items()
-              if k in ("chunk", "cap_schedule", "explain")}
+              if k in ("chunk", "cap_schedule", "explain", "checkpoint",
+                       "resume")}
     lock = threading.Lock()
     state: dict = {"result": None, "finished": 0}
     done = threading.Event()

@@ -65,21 +65,33 @@ pass budget :func:`_host_it_max` (the source of ``overflow: budget``).
 The generic and multiword bands run crashed ops through their ordinary
 loops, with no dominance.
 
-Not ported: supervision, checkpoint/resume, the incremental entry, and
-the host-row executor's dispatch amortisations (episode scheduler, K-row
-waves) and fault rungs (per-pass and CPU-oracle rows), which change no
-verdict.
+The search is supervised (:mod:`jepsen_tpu_torch.lin.supervise`): each
+chunk (site ``chunk``), spike mini-chunk (``spike``) and host-row rung
+(``host-fixpoint``, ``host-pass``) runs under the dispatch watchdog, on a
+copy of the engine that owns its stats (:func:`_guarded`), and a wedge
+or a fault there becomes the next rung of the host-row ladder (the fused
+per-row fixpoint, then one closure pass a dispatch; on the CPU only,
+then the CPU oracle, :func:`_host_row_cpu`) or an honest ``overflow:
+wedge`` / ``fault`` unknown. ``check_packed`` checkpoints the frontier at committed row
+boundaries and resumes from a checkpoint, and takes a carried frontier
+(the incremental entry) and returns one (``partial=True``).
+
+Not ported: the host-row executor's dispatch amortisations (episode
+scheduler, K-row waves), which change no verdict.
 """
 
 from __future__ import annotations
 
+import copy
+import os
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import _u32, resolve_device
-from jepsen_tpu_torch.lin import psort, psort_fused
+from jepsen_tpu_torch import _u32, resolve_device, util
+from jepsen_tpu_torch.lin import psort, psort_fused, supervise
 from jepsen_tpu_torch.lin.prepare import PackedHistory, reduction_tables
 from jepsen_tpu_torch.models.kernels import (F_CAS, F_WRITE, NIL,
                                              PACKED_STATE_KERNELS,
@@ -879,13 +891,14 @@ class _Engine:
                       "unfused_passes": 0, "unfused_tiers": {},
                       "compactions": 0, "retries": 0, "fetches": 0}
         # The host-row executor's counters (the reference's per-row path):
-        # episodes entered, rows run, fixpoint runs (one per row and
-        # capacity), closure passes inside them, passes of runs thrown away
-        # by an escalation, and rows whose sticky-raised starting level
-        # held (hits) or escalated all the same (misses).
-        self.host_stats = {"episodes": 0, "rows": 0, "dispatches": 0,
-                           "passes": 0, "wasted_passes": 0,
-                           "sticky_hits": 0, "sticky_misses": 0}
+        # episodes entered, rows run, closure dispatches (a fused fixpoint
+        # run, or one pass of the per-pass rung), closure passes inside
+        # them, passes of runs thrown away by an escalation, rows whose
+        # sticky-raised starting level held (hits) or escalated all the
+        # same (misses); and the supervision's: watchdog trips, faults,
+        # dispatches routed past a quarantined shape, and rows decided on
+        # the CPU oracle.
+        self.host_stats = _host_stats()
 
     def _init_band(self, pred_bit) -> None:
         """The compact band expands by mutator-compacted columns (M of
@@ -896,6 +909,46 @@ class _Engine:
         self.exp_h = expansion_tables(self.p, self.b)
         self.M = int(self.exp_h[0].shape[-1])
         self.crash_dom = bool(np.asarray(self.p.crashed).any())
+
+    def attempt(self):
+        """A shallow copy of the engine with a fresh stats dict, for one
+        guarded attempt (:func:`_guarded`): it shares the immutable
+        tables, keeps its own table bindings when the engine loads
+        others, and writes only its own stats, merged back by
+        :meth:`harvest` when the attempt is the one harvested."""
+        a = copy.copy(self)
+        a.stats = _fresh_stats(self.stats)
+        return a
+
+    def harvest(self, stats: dict) -> None:
+        _merge_stats(self.stats, stats)
+
+    def from_frontier(self, bits, state, count: int, cap: int):
+        """A frontier in the multiword layout (numpy ``bits`` u32[n, nw'],
+        ``state`` i32[n, 1], the checkpoint's and the incremental entry's)
+        as key words of ``cap`` keys on the engine's device; ``nw'`` may
+        be below the engine's (zero high words)."""
+        n = int(count)
+        fb = np.zeros((n, self.nw), np.int64)
+        src = np.asarray(bits)[:n, :self.nw]
+        fb[:, :src.shape[1]] = src
+        bt = torch.from_numpy(fb).to(self.dev)
+        st = torch.from_numpy(np.asarray(state)[:n, :1].astype(np.int64)) \
+            .to(self.dev)
+        if self.pair:
+            return _pack_frontier_keys2(bt, st, n, cap, self.b, self.nil_id)
+        return _pack_frontier_keys(bt[:, :1], st, n, cap, self.b,
+                                   self.nil_id), None
+
+    def to_frontier(self, lo, hi, n: int):
+        """The first ``n`` configs of a frontier in the multiword layout:
+        numpy (bits u32[n, nw], state i32[n, 1])."""
+        bits, state = self.unpack(lo, hi, n)
+        bits = bits[:n].cpu().numpy()
+        if bits.shape[1] < self.nw:
+            bits = np.pad(bits, ((0, 0), (0, self.nw - bits.shape[1])))
+        return (bits.astype(np.uint32),
+                state[:n].cpu().numpy().astype(np.int32))
 
     def cap_schedule(self, device) -> tuple:
         """The default cap schedule. Row tiers make small frontiers cheap
@@ -1058,6 +1111,7 @@ class _Engine:
         g = since = it = 0
         ovf = False
         while since < G and not ovf:
+            supervise.check_stop()
             l2, h2, n2, changed, o2 = _closure_pass_keys_compact(
                 lo, hi, count, groups[g], cap=tier, b=self.b,
                 nil_id=self.nil_id, step_fn=self.step_fn, dom=dom)
@@ -1071,38 +1125,55 @@ class _Engine:
             lo, hi, count = l2, h2, n2
         return lo, hi, count, ovf
 
+    def host_pass(self, r: int, lo, hi, count: int, cap: int, tbl=None,
+                  dom=None):
+        """ONE closure pass of the host-row executor for row r at ``cap``
+        (the per-pass rung's dispatch): ungrouped, with the forced
+        dominance dedup at :data:`DOM_ITERS_HOST` rounds, and its one
+        fetch; ``tbl``/``dom`` are row r's tables when the caller has
+        them. Returns (lo, hi, count, changed, overflow) with host ints
+        and flags."""
+        l2, h2, n2, ch, o2 = _closure_pass_keys_compact(
+            lo, hi, count, self.row_tables(r) if tbl is None else tbl,
+            cap=cap, b=self.b, nil_id=self.nil_id, step_fn=self.step_fn,
+            dom=self.row_dom(r) if tbl is None else dom,
+            dom_iters=DOM_ITERS_HOST)
+        n2, ch, o2 = torch.stack((n2.to(torch.int32), ch.to(torch.int32),
+                                  o2.to(torch.int32))).tolist()
+        self.stats["fetches"] += 1
+        return l2, h2, n2, bool(ch), bool(o2)
+
+    def host_filter(self, r: int, lo, hi, count: int, cap: int):
+        """Row r's return filter on a converged closure at ``cap``.
+        Returns (lo, hi, count)."""
+        s = self.ret[r]
+        if hi is None:
+            lo, count, _ = _filter_pass_keys(lo, count, s, cap=cap, b=self.b)
+        else:
+            lo, hi, count, _ = _filter_pass_keys2(lo, hi, count, s, cap=cap,
+                                                  b=self.b)
+        return lo, hi, count
+
     def host_fixpoint(self, r: int, lo, hi, count: int, cap: int,
                       it_max: int):
-        """The host-row executor's closure fixpoint for row r at ``cap``:
-        ungrouped passes with the forced dominance dedup at
-        :data:`DOM_ITERS_HOST` rounds until a pass changes nothing, a
-        dedup overflows, or ``it_max`` passes ran (one fetch per pass);
-        when converged, the return filter. Returns (lo, hi, converged,
-        dedup overflow, passes, count, peak), the count after the filter
-        and the peak the largest settled count of a pass (at least the
-        entry count)."""
+        """The host-row executor's closure fixpoint for row r at ``cap``
+        (the fused rung's dispatch): :meth:`host_pass` until a pass
+        changes nothing, a dedup overflows, or ``it_max`` passes ran; when
+        converged, the return filter. Returns (lo, hi, converged, dedup
+        overflow, passes, count, peak), the count after the filter and the
+        peak the largest settled count of a pass (at least the entry
+        count)."""
         tbl, dom = self.row_tables(r), self.row_dom(r)
         it, changed, ovf, peak = 0, True, False, count
         while changed and not ovf and it < it_max:
-            l2, h2, n2, ch, o2 = _closure_pass_keys_compact(
-                lo, hi, count, tbl, cap=cap, b=self.b, nil_id=self.nil_id,
-                step_fn=self.step_fn, dom=dom, dom_iters=DOM_ITERS_HOST)
-            n2, ch, o2 = torch.stack((n2.to(torch.int32),
-                                      ch.to(torch.int32),
-                                      o2.to(torch.int32))).tolist()
-            self.stats["fetches"] += 1
+            supervise.check_stop()
+            lo, hi, count, changed, o2 = self.host_pass(r, lo, hi, count,
+                                                        cap, tbl, dom)
             it += 1
-            changed, ovf, peak = bool(ch), ovf or bool(o2), max(peak, n2)
-            lo, hi, count = l2, h2, n2
+            ovf, peak = ovf or o2, max(peak, count)
         conv = not changed and not ovf
         if conv:
-            s = self.ret[r]
-            if hi is None:
-                lo, count, _ = _filter_pass_keys(lo, count, s, cap=cap,
-                                                 b=self.b)
-            else:
-                lo, hi, count, _ = _filter_pass_keys2(lo, hi, count, s,
-                                                      cap=cap, b=self.b)
+            lo, hi, count = self.host_filter(r, lo, hi, count, cap)
         return lo, hi, conv, ovf, it, count, peak
 
     def run_row(self, r: int, lo, hi, count: int, row_tiers: bool):
@@ -1138,6 +1209,7 @@ class _Engine:
         self.load_chunk(base, rows)
         pre = (lo, hi, count)
         for r in range(n_rows):
+            supervise.check_stop()
             pre = (lo, hi, count)
             lo, hi, count, dead, ovf = self.run_row(r, lo, hi, count,
                                                     row_tiers)
@@ -1193,6 +1265,7 @@ class _GenericEngine(_Engine):
         it_max = self.W + 12
         it, changed, ovf = 0, True, False
         while changed and not ovf:
+            supervise.check_stop()
             lo, n2, changed, o2 = _closure_pass_keys(
                 lo, count, *row, cap=tier, b=self.b, nil_id=self.nil_id,
                 step_fn=self.step_fn)
@@ -1204,16 +1277,69 @@ class _GenericEngine(_Engine):
         return lo, None, count, ovf, None
 
 
+def _host_stats() -> dict:
+    return {"episodes": 0, "rows": 0, "dispatches": 0, "passes": 0,
+            "wasted_passes": 0, "sticky_hits": 0, "sticky_misses": 0,
+            "watchdog_trips": 0, "faults": 0, "quarantine_skips": 0,
+            "cpu_rows": 0}
+
+
+def _fresh_stats(stats: dict) -> dict:
+    """A zeroed stats dict of the same shape (nested dicts empty)."""
+    return {k: {} if isinstance(v, dict) else 0 for k, v in stats.items()}
+
+
+def _merge_stats(into: dict, add: dict) -> None:
+    for k, v in add.items():
+        if isinstance(v, dict):
+            d = into.setdefault(k, {})
+            for kk, vv in v.items():
+                d[kk] = d.get(kk, 0) + vv
+        else:
+            into[k] = into.get(k, 0) + v
+
+
+def _guarded(eng, site: str, key: str, run, *, scale: float = 1.0):
+    """One supervised dispatch of ``run(attempt)`` on a copy of the engine
+    (:meth:`_Engine.attempt`), ended on the host: the thunk waits for the
+    device's stream before it returns, so the deadline covers device time.
+    Returns ``(outcome, value)`` as :func:`supervise.run_guarded`; on
+    ``"ok"`` the harvested attempt's stats are merged into the engine's.
+    The tables ``run`` reads must be loaded on the engine before the call.
+    """
+    def thunk():
+        a = eng.attempt()
+        out = run(a)
+        if eng.dev.type == "cuda":
+            torch.cuda.current_stream(eng.dev).synchronize()
+        return out, a.stats
+
+    outcome, val = supervise.run_guarded(site, key, thunk, scale=scale,
+                                         stats=eng.host_stats)
+    if outcome != "ok":
+        return outcome, val
+    out, stats = val
+    eng.harvest(stats)
+    return "ok", out
+
+
+def _shape_key(eng, site: str, cap: int, rows: int = 1) -> str:
+    return supervise.shape_key(site, rows=rows, cap=cap, window=eng.W,
+                               kernel=eng.p.kernel.name)
+
+
 def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
                 dropback, cancel, snapshots):
     """Spike mode: SPIKE_CHUNK-row mini-chunks at the spike capacities,
-    with the same rows as normal chunks (untiered). Processes
-    mini-chunks from ``r0`` until death, cancel, overflow of the last
-    cap, the history's end, or (after at least :data:`SPIKE_MIN_ROWS`
-    rows) the frontier shrinking to ``dropback``. ``snapshots`` (a list)
-    receives each mini-chunk's entry frontier, and on a death the dead
-    row's own entry. Returns (lo, hi, count, next_row, dead, overflowed,
-    cancelled, top_cap_used)."""
+    with the same rows as normal chunks (untiered), each a supervised
+    dispatch at site ``spike``. Processes mini-chunks from ``r0`` until
+    death, cancel, overflow of the last cap, a wedge or fault of a
+    mini-chunk, the history's end, or (after at least
+    :data:`SPIKE_MIN_ROWS` rows) the frontier shrinking to ``dropback``.
+    ``snapshots`` (a list) receives each mini-chunk's entry frontier, and
+    on a death the dead row's own entry. Returns (lo, hi, count, next_row,
+    dead, overflowed, cancelled, top_cap_used), ``overflowed`` False,
+    True, or "wedged" / "fault"."""
     p = eng.p
     lvl = 0
     top_used = caps[0]
@@ -1225,8 +1351,17 @@ def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
         if snapshots is not None:
             snapshots[:] = [(r, lo, hi, count)]
         m_n = min(SPIKE_CHUNK, p.R - r)
+        eng.load_chunk(r, SPIKE_CHUNK)
         while True:
-            out = eng.spike_chunk(r, m_n, SPIKE_CHUNK, lo, hi, count)
+            outcome, out = _guarded(
+                eng, "spike", _shape_key(eng, "spike", caps[lvl],
+                                         SPIKE_CHUNK),
+                lambda a, r=r, m_n=m_n, lo=lo, hi=hi, count=count:
+                a.spike_chunk(r, m_n, SPIKE_CHUNK, lo, hi, count))
+            if outcome != "ok":
+                return (lo, hi, count, r, False,
+                        "wedged" if outcome == "wedge" else "fault", False,
+                        top_used)
             if not out.ovf:
                 break
             if lvl + 1 >= len(caps):
@@ -1249,22 +1384,115 @@ def _spike_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
     return lo, hi, count, r, False, False, False, top_used
 
 
+def _host_row_cpu(p: PackedHistory, r: int, lo_h, hi_h, count: int, *,
+                  b: int, nil_id: int, key_hi: bool, nw: int,
+                  crash_dom: bool = False, cancel=None):
+    """The last rung of the host-row ladder: row r's whole closure and
+    return filter on the CPU oracle (``cpu.search_rows`` with
+    ``reduce=True``), from the row's entry frontier as host key arrays
+    (numpy u32, the first ``count`` live), decoded and re-encoded by the
+    numpy codec: it touches no device. With ``crash_dom`` the survivors
+    run the exact dominance prune of the dedups (crashed subset, read
+    superset, in the same group) on the host. Raises ``cpu.Cancelled``
+    through. Returns (lo, hi or None, count, dead): numpy u32 arrays of
+    max(len(lo_h), survivors) keys, ascending, KEY_FILL padded."""
+    from jepsen_tpu_torch.lin import cpu
+
+    cap = int(lo_h.shape[0])
+    bits, state = supervise.np_unpack_keys(lo_h, hi_h, count, b, nil_id, nw,
+                                           key_hi, int(NIL))
+    packed = bits[:, 0].astype(object)
+    for w in range(1, bits.shape[1]):
+        packed = packed | (bits[:, w].astype(object) << (32 * w))
+    configs = set(zip((int(x) for x in packed), map(tuple, state.tolist())))
+    try:
+        configs, _ = cpu.search_rows(p, configs, None, r, r + 1,
+                                     cancel=cancel, reduce=True)
+    except cpu.Dead:
+        return lo_h, hi_h, 0, True
+    if crash_dom:
+        pure_tbl, _pred = reduction_tables(p)
+        act = np.asarray(p.active)[r]
+        crashed = np.asarray(p.crashed)[r]
+        cmask = rmask = 0
+        for j in range(p.window):
+            if act[j] and crashed[j]:
+                cmask |= 1 << j
+            elif act[j] and pure_tbl[r, j]:
+                rmask |= 1 << j
+        if cmask or rmask:
+            # Group by (other bits, state); within a group X dominates Y
+            # iff X's dominance word (crashed bits as they are, read bits
+            # complemented) is a subset of Y's. A popcount-ascending scan
+            # keeps the antichain: a dominator has fewer bits than its
+            # victims.
+            groups: dict = {}
+            for bset, st in configs:
+                w = (bset & cmask) | (~bset & rmask)
+                groups.setdefault((bset & ~(cmask | rmask), st), []).append(
+                    (bin(w).count("1"), w, bset))
+            pruned = []
+            for (_gbits, st), lst in groups.items():
+                lst.sort()
+                kept: list[int] = []
+                for _pc, w, bset in lst:
+                    if any((kw & ~w) == 0 for kw in kept):
+                        continue
+                    kept.append(w)
+                    pruned.append((bset, st))
+            configs = pruned
+    n2 = len(configs)
+
+    def enc(bset, st):
+        sid = nil_id if st[0] == int(NIL) else st[0]
+        return (bset << b) | sid
+
+    ordered = sorted(configs, key=lambda c: enc(*c))
+    bits2 = np.zeros((n2, nw), np.uint32)
+    state2 = np.zeros((n2, 1), np.int32)
+    for i, (bset, st) in enumerate(ordered):
+        for w in range(nw):
+            bits2[i, w] = (bset >> (32 * w)) & 0xFFFFFFFF
+        state2[i, 0] = st[0]
+    lo2, hi2 = supervise.np_pack_keys(bits2, state2, b, nil_id, key_hi,
+                                      int(NIL), max(cap, n2))
+    return lo2, hi2, n2, False
+
+
 def _host_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
-               dropback, cancel, snapshots, min_rows: int = 2):
+               dropback, cancel, snapshots, min_rows: int = 2, ckpt=None,
+               sticky0=None):
     """The host-row executor of the crash-dom bands (the reference's
-    per-row path): rows one at a time from ``r0``, each a closure
-    fixpoint with the return filter (:meth:`_Engine.host_fixpoint`) at a
-    capacity of ``caps``, from the smallest holding TIER_MARGIN x the entry
-    count or the sticky level, whichever is higher; an overflow or an
-    exhausted pass budget re-runs the row from its entry frontier at the
-    next capacity. The sticky level follows the capacity the last row
-    needed and decays one level per row whose peak fits a lower one.
+    per-row path with its fault ladder): rows one at a time from ``r0``,
+    each a closure fixpoint with the return filter at a capacity of
+    ``caps``, from the smallest holding TIER_MARGIN x the entry count or
+    the sticky level, whichever is higher; an overflow or an exhausted
+    pass budget re-runs the row from its entry frontier at the next
+    capacity. The sticky level follows the capacity the last row needed
+    and decays one level per row whose peak fits a lower one; ``sticky0``
+    (a host-kind checkpoint's) raises the first row's.
+
+    Each capacity's closure is one supervised dispatch of the fused
+    fixpoint (:meth:`_Engine.host_fixpoint`, site ``host-fixpoint``,
+    3 x the base deadline); a wedged, faulted or quarantined one falls to
+    the per-pass rung (one :meth:`_Engine.host_pass` a dispatch, site
+    ``host-pass``, the return filter after it unsupervised, as the
+    reference's). The per-pass rung runs the same launches in smaller
+    dispatches, so it carries a row that is slow, not one that is stuck
+    or faulted. A wedged, faulted or quarantined pass ends the episode
+    on the card with an honest "wedged" or "fault"; on the CPU
+    (:func:`supervise.host_rungs`) the CPU oracle takes the row
+    (:func:`_host_row_cpu`) from its entry frontier, and past
+    ``supervise.cpu_row_max()`` the row gives up honestly ("wedged").
+    ``ckpt`` (a :class:`supervise.Checkpointer`) saves the committed
+    frontier after each row, with the sticky level and the host stats.
+
     Stops at a death, a cancel, an overflow of the last capacity, the
     history's end, or (after ``min_rows`` rows) a frontier of at most
     ``dropback``. ``snapshots`` receives each row's entry frontier.
     Returns (lo, hi, count, next_row, dead, overflow, cancelled,
-    top_cap_used), ``overflow`` False or the reason: "capacity" or
-    "budget"."""
+    top_cap_used), ``overflow`` False or the reason: "capacity",
+    "budget", "wedged" or "fault"."""
     p = eng.p
     st = eng.host_stats
     it_max = _host_it_max(eng.W)
@@ -1274,9 +1502,32 @@ def _host_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
         return next((i for i, cc in enumerate(caps) if c * TIER_MARGIN <= cc),
                     len(caps) - 1)
 
+    def host_keys(lo, hi, n):
+        # The first n key words as numpy u32 (a copy when on the card).
+        return (lo[:n].cpu().numpy().view(np.uint32),
+                None if hi is None else hi[:n].cpu().numpy().view(np.uint32))
+
+    def save_ckpt(at_r, lo, hi, cnt):
+        # Committed row boundary: the resumed run re-runs the same
+        # dispatch sequence from here, so its verdict is this run's.
+        if ckpt is None or not ckpt.due():
+            return
+        t0 = time.perf_counter()
+        lo_h, hi_h = host_keys(lo, hi, cnt)
+        arrays = {"lo": lo_h}
+        if hi_h is not None:
+            arrays["hi"] = hi_h
+        ckpt.save("host", at_r, cnt, arrays,
+                  {"key_hi": eng.pair, "b": eng.b, "nil_id": eng.nil_id,
+                   "nw": eng.nw, "sticky_lvl": sticky_lvl,
+                   "host_stats": util.round_stats(st)})
+        ckpt.seconds += time.perf_counter() - t0
+
     if count > caps[-1]:
         return lo, hi, count, r0, False, "capacity", False, top_used
     sticky_lvl = lvl_for(count)
+    if sticky0 is not None:
+        sticky_lvl = max(sticky_lvl, min(int(sticky0), len(caps) - 1))
     r = r0
     while r < p.R:
         if cancel is not None and cancel.is_set():
@@ -1288,45 +1539,167 @@ def _host_rows(eng: _Engine, r0: int, lo, hi, count: int, *, caps,
             snapshots[:] = [(r, lo, hi, count)]
         eng.load_chunk(r, 1)
         st["rows"] += 1
-        escalated = False
+        escalated = filtered = False
+        # The reason every device rung of this row failed, else None.
+        failed = None
+        row_fused = True
         peak_row = count
         while True:
             cap = caps[lvl]
             top_used = max(top_used, cap)
-            l_c, h_c = _resize(lo, hi, cap)
-            l2, h2, conv, ov, it, cnt, pk = eng.host_fixpoint(
-                0, l_c, h_c, count, cap, it_max)
-            st["dispatches"] += 1
-            st["passes"] += it
-            if conv:
-                peak_row = max(peak_row, pk)
+            run_fused = row_fused
+            if run_fused and supervise.quarantined(
+                    _shape_key(eng, "host-fixpoint", cap)):
+                # A quarantined fused shape runs on the per-pass rung.
+                supervise.note_skip(st)
+                run_fused = False
+            if run_fused:
+                outcome, val = _guarded(
+                    eng, "host-fixpoint",
+                    _shape_key(eng, "host-fixpoint", cap),
+                    lambda a, cap=cap, lo=lo, hi=hi, count=count:
+                    a.host_fixpoint(0, *_resize(lo, hi, cap), count, cap,
+                                    it_max), scale=3.0)
+                if outcome != "ok":
+                    # The row falls to the per-pass rung at this capacity,
+                    # from its entry frontier.
+                    row_fused = False
+                    continue
+                l2, h2, conv, ov, it, cnt, pk = val
+                st["dispatches"] += 1
+                st["passes"] += it
+                ovf, budget_out, filtered = not conv, not conv and not ov, \
+                    conv
+                if conv:
+                    peak_row = max(peak_row, pk)
+            else:
+                if supervise.quarantined(_shape_key(eng, "host-pass", cap)):
+                    # Even the per-pass shape is quarantined.
+                    supervise.note_skip(st)
+                    failed = "wedged"
+                    break
+                it, ovf, budget_out, filtered, pk = 0, False, False, False, \
+                    count
+                cur = None
+                while True:
+                    outcome, val = _guarded(
+                        eng, "host-pass", _shape_key(eng, "host-pass", cap),
+                        lambda a, cap=cap, cur=cur, lo=lo, hi=hi, count=count:
+                        a.host_pass(0, *(cur or (*_resize(lo, hi, cap),
+                                                 count)), cap))
+                    if outcome != "ok":
+                        failed = "fault" if outcome == "fault" else "wedged"
+                        break
+                    l2, h2, cnt, ch, ov = val
+                    cur = (l2, h2, cnt)
+                    it += 1
+                    st["dispatches"] += 1
+                    st["passes"] += 1
+                    pk = max(pk, cnt)
+                    if ov:
+                        ovf = True
+                        break
+                    # Converging exactly at the budget is convergence.
+                    if not ch:
+                        break
+                    if it >= it_max:
+                        ovf = budget_out = True
+                        break
+                if failed:
+                    break
+                if not ovf:
+                    peak_row = max(peak_row, pk)
+            if not ovf:
                 break
             st["wasted_passes"] += it
             if lvl + 1 >= len(caps):
                 # Hand back the row's entry frontier, with the reason.
                 return (lo, hi, count, r, False,
-                        "capacity" if ov else "budget", False, top_used)
+                        "budget" if budget_out else "capacity", False,
+                        top_used)
             lvl += 1
             escalated = True
+        if failed:
+            # Every device rung of this row wedged, faulted or is
+            # quarantined. On the card the episode ends there, honestly;
+            # on the CPU the CPU oracle runs the row from its entry.
+            if not supervise.host_rungs(eng.dev):
+                return lo, hi, count, r, False, failed, False, top_used
+            if count > supervise.cpu_row_max():
+                return lo, hi, count, r, False, "wedged", False, top_used
+            from jepsen_tpu_torch.lin import cpu
+
+            try:
+                lo_n, hi_n, n2, dead_cpu = _host_row_cpu(
+                    p, r, *host_keys(lo, hi, count), count, b=eng.b,
+                    nil_id=eng.nil_id, key_hi=eng.pair, nw=eng.nw,
+                    crash_dom=eng.crash_dom, cancel=cancel)
+            except cpu.Cancelled:
+                return lo, hi, count, r, False, False, True, top_used
+            st["cpu_rows"] += 1
+            r += 1
+            lo = torch.from_numpy(lo_n.view(np.int32))
+            hi = None if hi_n is None else torch.from_numpy(
+                hi_n.view(np.int32))
+            if dead_cpu or n2 == 0:
+                return lo, hi, 0, r, True, False, False, top_used
+            if n2 > caps[-1]:
+                # The unbounded CPU closure outgrew the ladder: handing it
+                # on would cut live configs at the next row.
+                return lo, hi, n2, r, False, "capacity", False, top_used
+            count = n2
+            save_ckpt(r, lo, hi, count)
+            if r - r0 >= min_rows and count <= dropback:
+                break
+            continue
         if raised:
             st["sticky_misses" if escalated else "sticky_hits"] += 1
         if lvl > sticky_lvl:
             sticky_lvl = lvl
         elif lvl_for(peak_row) < sticky_lvl:
             sticky_lvl -= 1
-        lo, hi, count = l2, h2, cnt
+        if filtered:
+            lo, hi, count = l2, h2, cnt
+        else:
+            lo, hi, count = eng.host_filter(0, *cur[:2], cur[2], cap)
         r += 1
         if count == 0:
             return lo, hi, 0, r, True, False, False, top_used
+        save_ckpt(r, lo, hi, count)
         if r - r0 >= min_rows and count <= dropback:
             break
     return lo, hi, count, r, False, False, False, top_used
 
 
+def _resume_source(p: PackedHistory, eng, checkpoint, resume):
+    """The checkpoint wiring of :func:`check_packed`: (Checkpointer or
+    None, the loaded checkpoint or None)."""
+    ckpt = None
+    if checkpoint is not None and not isinstance(checkpoint, (str, bool)):
+        ckpt = checkpoint                       # a prebuilt Checkpointer
+        ckpt_file = ckpt.path
+    else:
+        ckpt_file = checkpoint if isinstance(checkpoint, str) \
+            else supervise.ckpt_path()
+        if ckpt_file:
+            ckpt = supervise.Checkpointer(ckpt_file,
+                                          supervise.history_fingerprint(p))
+    rd = None
+    if resume is not False:
+        rpath = resume if isinstance(resume, str) else ckpt_file
+        if rpath and os.path.exists(rpath):
+            fp = ckpt.fingerprint if ckpt is not None \
+                else supervise.history_fingerprint(p)
+            rd = supervise.load_checkpoint(rpath, fp)
+    return ckpt, rd
+
+
 def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                  cancel=None, explain: bool = False,
                  spike_caps=SPIKE_CAP_SCHEDULE, host_caps=HOST_ROW_CAPS,
-                 packed_keys: bool | None = None, device=None) -> dict:
+                 packed_keys: bool | None = None, device=None,
+                 checkpoint=None, resume=None, frontier=None,
+                 frontier_row: int = 0, partial: bool = False) -> dict:
     """Decide linearizability of a packed history with the sparse engine.
 
     Chunks of ``chunk`` rows; capacity adapts per chunk: an overflow
@@ -1348,15 +1721,46 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
     (:mod:`jepsen_tpu_torch.lin.witness`). ``device`` is where the search
     runs (see :func:`jepsen_tpu_torch.resolve_device`).
 
+    The search is supervised (:mod:`jepsen_tpu_torch.lin.supervise`):
+    each chunk is one dispatch at site ``chunk``, whose wedge or fault is
+    an honest ``overflow: wedge`` / ``fault`` unknown, and so is one that
+    ends the host-row ladder; the trips, faults, quarantine skips and
+    CPU-oracle rows are in ``host-stats``.
+    ``checkpoint`` (a path, a prebuilt Checkpointer, or the
+    ``JEPSEN_TPU_CKPT`` env) saves the frontier at committed row
+    boundaries: after a clean chunk (kind ``chunk``, the multiword
+    layout) and after each host row (kind ``host``, packed keys with the
+    sticky level and host stats). ``resume`` (a path, by default the
+    checkpoint file when it exists; ``False`` disables) continues from
+    one, in the multiword layout of either package; the result then
+    carries ``resumed-from-row``. A definite verdict deletes the
+    checkpoint; an unknown, a cancel or a wedge keeps it.
+
+    The incremental entry: ``frontier`` — a carried committed frontier
+    ``(bits u32[n, nw], state i32[n, S], count)`` in the multiword layout
+    — re-enters the row loop at ``frontier_row`` as a resume does (and
+    takes precedence over one); with ``partial=True`` a clean walk to the
+    end returns the committed frontier as ``stream-frontier`` (numpy
+    ``bits``, ``state``, ``count``, ``row``) beside the verdict, so that
+    the caller can extend the history and re-enter. A carried frontier
+    reads no checkpoint (``resume`` is ignored); ``checkpoint`` still
+    saves.
+
     Returns the reference's result shape: ``valid?``, ``dead-row``,
     ``op``, ``final-frontier-size``, ``max-cap``, ``overflow`` (with an
-    unknown: ``capacity``, or ``budget`` from the host-row executor)."""
+    unknown: ``capacity``, ``budget``, ``wedge`` or ``fault``)."""
     device = resolve_device(device)
     err = band_error(p)
     if err is not None:
         return {"valid?": "unknown", "analyzer": ANALYZER, "error": err}
     if p.R == 0:
-        return {"valid?": True, "analyzer": ANALYZER, "configs": []}
+        out = {"valid?": True, "analyzer": ANALYZER, "configs": []}
+        if partial:
+            out["stream-frontier"] = {
+                "bits": np.zeros((1, (p.window + 31) // 32), np.uint32),
+                "state": np.asarray(p.init_state, np.int32)[None, :],
+                "count": 1, "row": 0}
+        return out
     eng = {"compact": _Engine, "generic": _GenericEngine,
            "multiword": _MWEngine}[key_band(p, packed_keys)](p, device)
     if cap_schedule is None or cap_schedule is DEFAULT_CAP_SCHEDULE:
@@ -1367,6 +1771,11 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
         # only the selection margin over it.
         cap_schedule = (TIER_MARGIN * eng.max_tier,)
     backend = "cuda" if device.type == "cuda" else "plain"
+    hs = eng.host_stats
+    # The host-row executor's dropback: the hand-back must fit the top
+    # chunk cap as well as the tiers (the resume keeps only cap keys).
+    hdrop = min(SPIKE_DROPBACK, (eng.max_tier or cap_schedule[-1])
+                // TIER_MARGIN, cap_schedule[-1])
 
     level = 0
     cap = cap_schedule[level]
@@ -1375,14 +1784,101 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
     max_cap_used = cap
     snapshots: list | None = [] if explain else None
 
+    def place(fb, fs, fc):
+        # A multiword-layout frontier at the first level that holds it.
+        nonlocal level, cap, max_cap_used
+        level = next(i for i, c in enumerate(cap_schedule) if fc <= c)
+        cap = cap_schedule[level]
+        max_cap_used = max(max_cap_used, cap)
+        return eng.from_frontier(fb, fs, fc, cap)
+
+    # A carried frontier takes precedence: no checkpoint is read for it.
+    ckpt, rd = _resume_source(p, eng, checkpoint,
+                              False if frontier is not None else resume)
+    resume_host = None
+    resumed_from = None
+    start_row = 0
+    if rd is not None:
+        rcount = rd["count"]
+        if rd["kind"] == "host":
+            m = rd["meta"]
+            if eng.crash_dom and (m.get("b"), m.get("key_hi"),
+                                  m.get("nw")) == (eng.b, eng.pair, eng.nw):
+                rbits, rstate = supervise.np_unpack_keys(
+                    rd["lo"], rd.get("hi"), rcount, eng.b, eng.nil_id,
+                    eng.nw, eng.pair, int(NIL))
+                resume_host = (rbits, rstate, rcount, m.get("sticky_lvl"))
+                start_row = resumed_from = rd["row"]
+                for k, v in (m.get("host_stats") or {}).items():
+                    if k in hs and not isinstance(v, (dict, list)):
+                        hs[k] = v
+        elif rcount <= cap_schedule[-1]:
+            lo, hi = place(rd["bits"], rd["state"], rcount)
+            count = rcount
+            start_row = resumed_from = rd["row"]
+
+    if frontier is not None:
+        fb = np.asarray(frontier[0], dtype=np.uint32)
+        fs = np.asarray(frontier[1], dtype=np.int32)
+        fc = int(frontier[2])
+        if fb.ndim == 1:
+            fb = fb[:, None]
+        if fs.ndim == 1:
+            fs = fs[:, None]
+        S = np.asarray(p.init_state).shape[0]
+        if fs.shape[1] != S:
+            return {"valid?": "unknown", "analyzer": ANALYZER,
+                    "error": f"carried frontier state width {fs.shape[1]} "
+                             f"!= kernel width {S}"}
+        if fc <= 0:
+            # An empty committed frontier follows only a death row, which
+            # would have ended the stream already.
+            return {"valid?": "unknown", "analyzer": ANALYZER,
+                    "error": "carried stream frontier is empty"}
+        if fb.shape[1] < eng.nw:
+            # The window crossed a 32-slot word boundary between
+            # increments; the high words are zero.
+            fb = np.pad(fb, ((0, 0), (0, eng.nw - fb.shape[1])))
+        resume_host = resumed_from = None
+        start_row = int(frontier_row)
+        if fc <= cap_schedule[-1]:
+            lo, hi = place(fb, fs, fc)
+            count = fc
+        elif eng.crash_dom:
+            # Past the chunked top cap: the host-row executor re-enters
+            # directly (the host-kind resume path).
+            resume_host = (fb, fs, fc, None)
+        else:
+            return {"valid?": "unknown", "analyzer": ANALYZER,
+                    "overflow": "capacity",
+                    "error": f"carried stream frontier {fc} exceeds chunk "
+                             f"capacity {cap_schedule[-1]}"}
+
     def with_stats(out: dict) -> dict:
-        if eng.host_stats["episodes"]:
-            out["host-stats"] = dict(eng.host_stats)
+        if hs["episodes"] or any(hs.get(k) for k in (
+                "watchdog_trips", "faults", "quarantine_skips", "cpu_rows")):
+            out["host-stats"] = util.round_stats(hs)
+        if resumed_from is not None:
+            out["resumed-from-row"] = resumed_from
+        if ckpt is not None and not partial \
+                and out.get("valid?") in (True, False):
+            # A finished search must not be resumed by a later run.
+            ckpt.clear()
         return out
 
     def unknown(**kw) -> dict:
         return with_stats({"valid?": "unknown", "analyzer": ANALYZER,
                            "backend": backend, **kw})
+
+    def final_valid(lo, hi, count: int) -> dict:
+        out = {"valid?": True, "analyzer": ANALYZER, "backend": backend,
+               "configs": [], "final-frontier-size": int(count),
+               "max-cap": max_cap_used, "engine-stats": eng.stats}
+        if partial:
+            bits, state = eng.to_frontier(lo, hi, int(count))
+            out["stream-frontier"] = {"bits": bits, "state": state,
+                                      "count": int(count), "row": int(p.R)}
+        return with_stats(out)
 
     def dead_verdict(dead_row: int) -> dict:
         ret = p.ops[int(p.ret_op[dead_row])]
@@ -1399,8 +1895,68 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                 p, _materialize(snapshots, eng), dead_row, cancel=cancel))
         return with_stats(out)
 
-    base = 0
+    def consume(spiked, spike_top):
+        """Fold a host-row or spike run back into the chunk loop: ("return",
+        verdict), ("dead", next_row) or ("continue", None)."""
+        nonlocal lo, hi, count, base, level, cap, max_cap_used
+        (s_lo, s_hi, s_count, next_r, dead_h, ovf_h, cancelled,
+         top_used) = spiked
+        max_cap_used = max(max_cap_used, top_used)
+        if cancelled:
+            return "return", unknown(error="cancelled")
+        if ovf_h == "budget":
+            return "return", unknown(
+                overflow="budget",
+                error=f"closure pass budget exceeded at capacity "
+                      f"{spike_top}")
+        if ovf_h in ("wedged", "fault"):
+            return "return", unknown(
+                overflow="wedge" if ovf_h == "wedged" else "fault",
+                error=f"wedged/faulted dispatch survived the fallback "
+                      f"ladder near row {next_r}")
+        if ovf_h:
+            return "return", unknown(
+                overflow="capacity",
+                error=f"frontier exceeded capacity {spike_top}")
+        if dead_h:
+            return "dead", next_r
+        if next_r >= p.R:
+            return "return", final_valid(s_lo, s_hi, s_count)
+        # Resume full-size chunks at the top chunk level; the shrink
+        # below drops back once chunks run clean.
+        level = len(cap_schedule) - 1
+        cap = cap_schedule[level]
+        (lo, hi), count = eng.resize(s_lo, s_hi, cap), s_count
+        base = next_r
+        return "continue", None
+
+    def save_chunk(at_r: int) -> None:
+        if ckpt is None or not ckpt.due():
+            return
+        t0 = time.perf_counter()
+        bits, state = eng.to_frontier(lo, hi, max(count, 1))
+        ckpt.save("chunk", at_r, count, {"bits": bits, "state": state}, {})
+        ckpt.seconds += time.perf_counter() - t0
+
+    base = start_row
     while base < p.R:
+        if resume_host is not None:
+            # A host-kind checkpoint or a carried frontier past the top
+            # chunk cap: the host-row executor continues from it.
+            rbits, rstate, rcount, rsticky = resume_host
+            resume_host = None
+            hs["episodes"] += 1
+            r_lo, r_hi = eng.from_frontier(rbits, rstate, rcount,
+                                           max(rcount, 1))
+            act, payload = consume(_host_rows(
+                eng, base, r_lo, r_hi, rcount, caps=host_caps,
+                dropback=hdrop, cancel=cancel, snapshots=snapshots,
+                ckpt=ckpt, sticky0=rsticky), host_caps[-1])
+            if act == "return":
+                return payload
+            if act == "dead":
+                return dead_verdict(payload - 1)
+            continue
         if snapshots is not None:
             # Only the last snapshot is ever replayed: the dead row is
             # always inside the current chunk.
@@ -1409,8 +1965,19 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             return unknown(error="cancelled")
         n = min(chunk, p.R - base)
         spiked = None
+        eng.load_chunk(base, chunk)
         while True:
-            out = eng.chunk(base, n, chunk, lo, hi, count)
+            outcome, out = _guarded(
+                eng, "chunk", _shape_key(eng, "chunk", cap_schedule[level],
+                                         chunk),
+                lambda a, base=base, n=n, lo=lo, hi=hi, count=count:
+                a.chunk(base, n, chunk, lo, hi, count))
+            if outcome == "wedge":
+                return unknown(overflow="wedge", error=str(out))
+            if outcome == "fault":
+                return unknown(overflow="fault",
+                               error=f"dispatch fault near row {base}: "
+                                     f"{out!r}")
             if not out.ovf:
                 break
             # With capped tiers a larger chunk cap whose tiers stop at the
@@ -1424,16 +1991,11 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                 # executor, from the frontier the rows before it left.
                 n_pre = out.rows_done - 1
                 if eng.crash_dom:
-                    # The hand-back must fit the top chunk cap as well as
-                    # the tiers: the resume below keeps only cap keys.
-                    eng.host_stats["episodes"] += 1
+                    hs["episodes"] += 1
                     spiked = _host_rows(
                         eng, base + n_pre, out.pre_lo, out.pre_hi,
-                        out.pre_count, caps=host_caps,
-                        dropback=min(SPIKE_DROPBACK,
-                                     eng.max_tier // TIER_MARGIN,
-                                     cap_schedule[-1]),
-                        cancel=cancel, snapshots=snapshots)
+                        out.pre_count, caps=host_caps, dropback=hdrop,
+                        cancel=cancel, snapshots=snapshots, ckpt=ckpt)
                     spike_top = host_caps[-1]
                     break
                 # Spike caps strictly exceed the chunked top cap: a
@@ -1456,35 +2018,17 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             max_cap_used = max(max_cap_used, cap)
             lo, hi = eng.resize(lo, hi, cap)
         if spiked is not None:
-            (s_lo, s_hi, s_count, next_r, dead_h, ovf_h, cancelled,
-             top_used) = spiked
-            max_cap_used = max(max_cap_used, top_used)
-            if cancelled:
-                return unknown(error="cancelled")
-            if ovf_h == "budget":
-                return unknown(overflow="budget",
-                               error=f"closure pass budget exceeded at "
-                                     f"capacity {spike_top}")
-            if ovf_h:
-                return unknown(overflow="capacity",
-                               error=f"frontier exceeded capacity "
-                                     f"{spike_top}")
-            if dead_h:
-                return dead_verdict(next_r - 1)
-            if next_r >= p.R:
-                count = s_count
-                break
-            # Resume full-size chunks at the top chunk level; the shrink
-            # below drops back once chunks run clean.
-            level = len(cap_schedule) - 1
-            cap = cap_schedule[level]
-            (lo, hi), count = eng.resize(s_lo, s_hi, cap), s_count
-            base = next_r
+            act, payload = consume(spiked, spike_top)
+            if act == "return":
+                return payload
+            if act == "dead":
+                return dead_verdict(payload - 1)
             continue
         if out.dead:
             return dead_verdict(base + out.rows_done - 1)
         lo, hi, count = out.lo, out.hi, out.count
         base += n
+        save_chunk(base)
         # The frontier is compacted to the front, so a shrunken frontier
         # drops back to a smaller level by slicing.
         while level > 0 and count * 4 <= cap_schedule[level - 1]:
@@ -1492,10 +2036,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
             cap = cap_schedule[level]
             lo, hi = eng.resize(lo, hi, cap)
 
-    return with_stats({"valid?": True, "analyzer": ANALYZER,
-                       "backend": backend, "configs": [],
-                       "final-frontier-size": int(count),
-                       "max-cap": max_cap_used, "engine-stats": eng.stats})
+    return final_valid(lo, hi, count)
 
 
 def _materialize(snapshots, eng):
@@ -1545,6 +2086,26 @@ class _MWEngine:
         # device-to-host fetches (one a pass, three a row).
         self.stats = {"rows": 0, "passes": 0, "fetches": 0}
         self.host_stats = {"episodes": 0}
+
+    attempt = _Engine.attempt
+    harvest = _Engine.harvest
+
+    def from_frontier(self, bits, state, count: int, cap: int):
+        """A multiword-layout frontier (numpy, see
+        :meth:`_Engine.from_frontier`) as (bits, state) tensors of ``cap``
+        configs."""
+        n = int(count)
+        fb = np.zeros((1, cap, self.nw), np.int64)
+        src = np.asarray(bits)[:n, :self.nw]
+        fb[0, :n, :src.shape[1]] = src
+        fs = np.zeros((1, cap, self.S), np.int64)
+        fs[0, :n] = np.asarray(state)[:n]
+        return (torch.from_numpy(fb).to(self.dev),
+                torch.from_numpy(fs).to(self.dev))
+
+    def to_frontier(self, lo, hi, n: int):
+        return (lo[0, :n].cpu().numpy().astype(np.uint32),
+                hi[0, :n].cpu().numpy().astype(np.int32))
 
     def cap_schedule(self, device) -> tuple:
         return DEFAULT_CAP_SCHEDULE
@@ -1605,6 +2166,7 @@ class _MWEngine:
         cap = lo.shape[1]
         pre = (lo, hi, count)
         for r in range(n_rows):
+            supervise.check_stop()
             pre = (lo, hi, count)
             row = tuple(t[:, r:r + 1] for t in self.tables)
             b2, s2, c2, _, dead, ovf = _search_chunk(
@@ -1809,6 +2371,7 @@ def _search_chunk(n_rows, ret_slot, active, slot_f, slot_v, pure, pred_bit,
         it = zeros
         go = run
         while True:                             # do-while to fixpoint
+            supervise.check_stop()
             b2, s2, n2, changed, o2 = _closure_pass_mw(
                 c_bits, c_state, c_count, *row, cap=cap, W=W, nw=nw,
                 step_fn=step_fn, slot_bit=slot_bit, rows=prefix(most))

@@ -174,8 +174,9 @@ def dense_chunk(F, n_rows: int, masks, ret_slot, *, w: int,
             ret_slot.data_ptr(), int(n_rows), int(w), int(ns),
             state.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"dense_chunk kernel launch failed: CUDA error "
-                           f"{rc} (w={w}, ns={ns}, n_rows={n_rows})")
+        raise _build.LaunchError(
+            f"dense_chunk kernel launch failed: CUDA error "
+            f"{rc} (w={w}, ns={ns}, n_rows={n_rows})")
     LAUNCHES += 1
     return ChunkResult(F_out, state)
 
@@ -297,9 +298,10 @@ def dense_chunk_batch(F, n_rows, masks, ret_slot, *, w: int,
             ret_slot.data_ptr(), n_rows.data_ptr(), int(keys), int(r_pad),
             int(w), int(ns), state.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"dense_chunk_batch kernel launch failed: CUDA "
-                           f"error {rc} (keys={keys}, w={w}, ns={ns}, "
-                           f"r_pad={r_pad})")
+        raise _build.LaunchError(
+            f"dense_chunk_batch kernel launch failed: CUDA "
+            f"error {rc} (keys={keys}, w={w}, ns={ns}, "
+            f"r_pad={r_pad})")
     BATCH_LAUNCHES += 1
     return ChunkResult(F_out, state)
 

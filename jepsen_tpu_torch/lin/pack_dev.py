@@ -33,8 +33,13 @@ past the real window paint into a dump column, also sliced off.
 
 The routing is the JAX package's: a history with no kernel, no return or
 no op, and a wave of fewer than :data:`MIN_BATCH_K` lanes, packs on
-the host. A fault on the device raises: no fallback hides the
-card. No caller of the port's main path packs here yet: on the card it
+the host. Each wave's device call runs under the dispatch watchdog (site
+``pack-dev``, :mod:`jepsen_tpu_torch.lin.supervise`): a quarantined
+shape, a wedge or a fault is counted in :func:`dev_stats`. On the card
+it raises (``supervise.Quarantined``, ``WedgedDispatch`` or the fault):
+the card's work does not move to the host. On the CPU the wave's lanes
+pack on the host instead, the bit-identical pack, as in the JAX package.
+No caller of the port's main path packs here yet: on the card it
 does not beat the host pack (``chip_smoke.py`` phase 22). The service's
 admission (as in the JAX package's daemon) and the stream are to call
 it.
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch import resolve_device
-from jepsen_tpu_torch.lin import prepare
+from jepsen_tpu_torch.lin import prepare, supervise
 from jepsen_tpu_torch.lin.prepare import PackedHistory, UnsupportedHistory
 from jepsen_tpu_torch.models.kernels import F_IDS, NIL
 
@@ -62,9 +67,12 @@ MIN_BATCH_K = 4
 
 # Device-pack accounting: dispatches, lanes and wall seconds on the
 # device; lanes packed on the host, and of those the eligible ones that a
-# wave below MIN_BATCH_K kept there.
+# wave below MIN_BATCH_K kept there; and the supervision's: lanes that
+# fell back to the host, waves routed past a quarantined shape, wedged
+# and faulted waves.
 _dev_stats = {"dev_packs": 0, "dev_lanes": 0, "dev_pack_s": 0.0,
-              "host_lanes": 0, "host_eligible": 0}
+              "host_lanes": 0, "host_eligible": 0, "host_fallbacks": 0,
+              "quarantine_skips": 0, "wedges": 0, "faults": 0}
 
 
 def dev_stats() -> dict:
@@ -482,12 +490,38 @@ def materialize_batch(pres: list, *, device=None) -> list:
     return out
 
 
+def _shape_key(shape: tuple, lanes: int) -> str:
+    n_pad, r_pad, w_pad, vw = shape
+    return supervise.shape_key("pack-dev", cap=n_pad, window=w_pad,
+                               kernel=f"pack-vw{vw}", rows=max(1, lanes),
+                               band=f"r{r_pad}")
+
+
 def _materialize_wave(wave: list, dev: torch.device) -> list:
-    """One device call over same-bucket lanes."""
+    """One supervised device call over same-bucket lanes. On any outcome
+    but ``ok`` it raises on the card and packs every lane on the host on
+    the CPU."""
     pre0 = wave[0]
     shape = pad_shape(pre0.n, pre0.R, pre0.window, pre0.op_v.shape[1])
+    key = _shape_key(shape, len(wave))
+    if supervise.quarantined(key) is not None:
+        supervise.note_skip(None)
+        _dev_stats["quarantine_skips"] += 1
+        if not supervise.host_rungs(dev):
+            raise supervise.Quarantined(
+                f"pack-dev shape {key} is quarantined "
+                f"({supervise.ledger_path()})")
+        _dev_stats["host_fallbacks"] += len(wave)
+        return [_host_materialize(p) for p in wave]
     t0 = time.perf_counter()
-    lanes = _run_wave(wave, shape, dev)
+    outcome, lanes = supervise.run_guarded(
+        "pack-dev", key, lambda: _run_wave(wave, shape, dev))
+    if outcome != "ok":
+        _dev_stats["wedges" if outcome == "wedge" else "faults"] += 1
+        if not supervise.host_rungs(dev):
+            raise lanes
+        _dev_stats["host_fallbacks"] += len(wave)
+        return [_host_materialize(p) for p in wave]
     dt = time.perf_counter() - t0
     _dev_stats["dev_packs"] += 1
     _dev_stats["dev_lanes"] += len(wave)

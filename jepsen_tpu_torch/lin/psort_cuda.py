@@ -99,8 +99,9 @@ def _stream(t: torch.Tensor) -> int:
 def _raise_on(rc: int, what: str, **sizes) -> None:
     if rc != 0:
         shape = ", ".join(f"{k}={v}" for k, v in sizes.items())
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
-                           f"({shape})")
+        raise _build.LaunchError(
+            f"{what} kernel launch failed: CUDA error {rc} "
+            f"({shape})")
 
 
 def dedup_kernel_launches() -> int:

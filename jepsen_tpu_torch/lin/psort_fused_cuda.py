@@ -101,8 +101,9 @@ def fixpoint(lo: torch.Tensor, hi, count: torch.Tensor, cols: torch.Tensor,
             path.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fixpoint kernel launch failed: CUDA error {rc} "
-                           f"(cap={cap}, M={M}, b={b}, n_pad={n_pad}, "
-                           f"pair={pair})")
+        raise _build.LaunchError(
+            f"fixpoint kernel launch failed: CUDA error {rc} "
+            f"(cap={cap}, M={M}, b={b}, n_pad={n_pad}, "
+            f"pair={pair})")
     last_path = path
     return out, out_hi, flags

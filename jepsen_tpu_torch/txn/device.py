@@ -35,10 +35,15 @@ Fault discipline:
   becomes an honest ``overflow: budget``, which sends the tier to the
   host Tarjan (bounded by ``JEPSEN_TPU_TXN_CPU_MAX`` edges; past it the
   result is an honest ``valid? "unknown"``), recorded in ``fallbacks``.
-- A failed build or a refused or faulting launch raises: nothing catches
-  it and falls back to the plain version or to the host. (The JAX
-  package's supervised dispatch, quarantine and wedge retry are not
-  ported yet.)
+- Every tier's launch runs under the dispatch watchdog
+  (:func:`jepsen_tpu_torch.lin.supervise.run_guarded`, site ``txn-scc``),
+  its fetch inside the supervised thunk. A quarantined shape, a wedge or
+  a fault (a refused or faulting launch raises ``_build.LaunchError``)
+  is recorded in ``fallbacks``, the stats and the quarantine ledger. On
+  the card the check then reports an honest ``valid? "unknown"`` with the
+  reason as its ``overflow``; on the CPU the tier goes to the host
+  Tarjan, as in the JAX package. Nothing falls back to the plain
+  version; a failed kernel build and a sticky CUDA fault raise.
 
 On a CUDA tensor :func:`scc_program` launches the kernel; on a CPU
 tensor it runs :func:`scc_program_plain`, the same loops as torch ops.
@@ -58,7 +63,8 @@ import time
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import resolve_device
+from jepsen_tpu_torch import resolve_device, util
+from jepsen_tpu_torch.lin import supervise
 from jepsen_tpu_torch.txn import oracle
 from jepsen_tpu_torch.txn.pack import PackedTxnHistory
 
@@ -83,25 +89,20 @@ ANALYZER = "txn-gpu"
 LAUNCHES = 0
 
 
-def _env_int(name: str, default: int) -> int:
-    v = os.environ.get(name, "")
-    return int(v) if v else default
-
-
 def it_max_for(n: int) -> int:
     """Iteration ceiling inside the launch, read per call. Every phase
     converges in at most n+1 rounds (each trim round kills a node or
     stops; a label/flag round extends the fixed set or stops), so the
     auto ceiling is a true upper bound, not a tuning knob; override for
     triage only."""
-    env = _env_int("JEPSEN_TPU_TXN_IT_MAX", 0)
+    env = util.env_int("JEPSEN_TPU_TXN_IT_MAX", 0)
     return env if env > 0 else n + 8
 
 
 def cpu_max_edges() -> int:
     """Largest graph the host-Tarjan fallback rung accepts; past it an
     overflowed tier reports an honest unknown."""
-    return _env_int("JEPSEN_TPU_TXN_CPU_MAX", 2_000_000)
+    return util.env_int("JEPSEN_TPU_TXN_CPU_MAX", 2_000_000)
 
 
 def stats_path() -> str | None:
@@ -264,9 +265,10 @@ def window_inputs(src_h, dst_h, n: int, dev: torch.device):
 def _tier_device_sccs(pt: PackedTxnHistory, tier: str, stats: dict,
                       rt: bool, dev: torch.device):
     """One tier on the device: launch the SCC program, fetch its outputs
-    once, decode SCCs from (alive, lab, flag), Tarjan the residue on the
-    host. Returns (sccs, tier_stats) or raises _TierFallback on an
-    overflow.
+    once (both inside one supervised dispatch, site ``txn-scc``), decode
+    SCCs from (alive, lab, flag), Tarjan the residue on the host. Returns
+    (sccs, tier_stats) or raises _TierFallback on an overflow, a
+    quarantined shape, a wedge or a fault.
 
     ``rt`` is the REQUESTED realtime flag, not ``pt.realtime`` (whether
     rt edges were packed): a realtime-packed history checked as plain
@@ -278,16 +280,33 @@ def _tier_device_sccs(pt: PackedTxnHistory, tier: str, stats: dict,
         return [], win
     src_h, dst_h, n, lo, e_all = win
     e = len(src_h)
-    src_d, dst_d, live_d, n_pad = window_inputs(src_h, dst_h, n, dev)
-    e_pad = int(src_d.shape[0])
-    outs = scc_program(src_d, dst_d, live_d, n, it_max_for(n), n_pad=n_pad)
-    # One device-to-host copy of the five outputs.
-    alive, lab, flag, iters, overflow = _split(torch.cat(
-        [x.to(torch.int32) for x in outs]).cpu().numpy(), n_pad)
+    n_pad = _bucket(n, MIN_NODE_PAD)
+    e_pad = _bucket(e, MIN_EDGE_PAD)
+    key = supervise.shape_key("txn-scc", cap=e_pad, window=0,
+                              kernel=f"txn-{tier}", rows=n_pad)
+    if supervise.quarantined(key) is not None:
+        supervise.note_skip(stats)
+        raise _TierFallback(tier, "quarantined")
+
+    def thunk():
+        # The inputs, the launch and one device-to-host copy of the five
+        # outputs, inside the supervised worker: a stuck fetch is a
+        # wedged dispatch, not a wedged caller.
+        src_d, dst_d, live_d, _ = window_inputs(src_h, dst_h, n, dev)
+        outs = scc_program(src_d, dst_d, live_d, n, it_max_for(n),
+                           n_pad=n_pad)
+        return _split(torch.cat([x.to(torch.int32) for x in outs])
+                      .cpu().numpy(), n_pad)
+
+    outcome, value = supervise.run_guarded("txn-scc", key, thunk,
+                                           stats=stats)
+    if outcome != "ok":
+        raise _TierFallback(tier, outcome)
+    alive, lab, flag, iters, overflow = value
     if bool(overflow.any()):
         # The ceiling fired with changes pending: an honest budget
         # overflow, never a silently-partial decomposition.
-        stats["overflows"] = stats.get("overflows", 0) + 1
+        util.stat_bump(stats, "overflows")
         raise _TierFallback(tier, "overflow: budget")
 
     alive = alive[:n]
@@ -351,7 +370,9 @@ def check_packed(pt: PackedTxnHistory, anomalies=None,
     decompositions to the oracle's shared classifier, and reports the
     oracle-identical verdict + witness. A tier whose ceiling fires goes
     to the host Tarjan (``fallbacks``); only a graph past the host bound
-    reports unknown.
+    reports unknown. A tier whose launch wedged, faulted or is
+    quarantined goes there too on the CPU, and on the card reports
+    unknown.
     """
     dev = resolve_device(device)
     requested, rt = oracle.resolve_anomalies(anomalies, consistency,
@@ -377,19 +398,27 @@ def check_packed(pt: PackedTxnHistory, anomalies=None,
             stats["tiers"][tier] = ts
         except _TierFallback as f:
             fallbacks[tier] = f.reason
-            if pt.n_edges > cpu_max_edges():
+            stuck = f.reason in ("quarantined", "wedge", "fault") \
+                and not supervise.host_rungs(dev)
+            if stuck or pt.n_edges > cpu_max_edges():
+                # On the card a tier whose launch failed does not move to
+                # the host; past the host bound no tier does.
+                error = f"tier {tier}: the SCC launch gave {f.reason}" \
+                    if stuck else \
+                    f"tier {tier} {f.reason} and graph ({pt.n_edges} " \
+                    f"edges) exceeds the host fallback bound " \
+                    f"(JEPSEN_TPU_TXN_CPU_MAX)"
                 out = {"valid?": "unknown", "analyzer": ANALYZER,
-                       "error": f"tier {tier} {f.reason} and graph "
-                                f"({pt.n_edges} edges) exceeds the "
-                                f"host fallback bound "
-                                f"(JEPSEN_TPU_TXN_CPU_MAX)",
-                       "overflow": f.reason, "stats": stats}
+                       "error": error, "overflow": f.reason,
+                       "stats": stats}
+                if stuck:
+                    out["fallbacks"] = fallbacks
                 if snapshot:
                     _write_snapshot({"verdict": "unknown",
                                      "error": out["error"],
                                      "stats": stats})
                 return out
-            stats["cpu_tiers"] = stats.get("cpu_tiers", 0) + 1
+            util.stat_bump(stats, "cpu_tiers")
             sccs_by_tier[tier] = _tier_host_sccs(pt, tier, rt)
             stats["tiers"][tier] = {"edges": None, "device": False,
                                     "fallback": f.reason}

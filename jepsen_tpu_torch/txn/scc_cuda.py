@@ -44,7 +44,8 @@ def grid(e_pad: int, n_pad: int) -> int:
     a multiprocessor, capped at one thread per edge or node."""
     g = int(_load().txn_scc_grid(int(e_pad), int(n_pad)))
     if g <= 0:
-        raise RuntimeError(f"txn_scc grid query failed: CUDA error {-g}")
+        raise _build.LaunchError(
+            f"txn_scc grid query failed: CUDA error {-g}")
     return g
 
 
@@ -72,7 +73,8 @@ def scc(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor, n: int,
             int(n_pad), int(it_max), out.data_ptr(), scratch.data_ptr(),
             em.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"txn_scc kernel launch failed: CUDA error {rc} "
-                           f"(e_pad={e_pad}, n={n}, n_pad={n_pad}, "
-                           f"it_max={it_max})")
+        raise _build.LaunchError(
+            f"txn_scc kernel launch failed: CUDA error {rc} "
+            f"(e_pad={e_pad}, n={n}, n_pad={n_pad}, "
+            f"it_max={it_max})")
     return out

@@ -24,6 +24,8 @@ def _port_modules():
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     mods = list(_port_modules())
     assert "jepsen_tpu_torch.lin.dense_cuda" in mods
+    assert "jepsen_tpu_torch.util" in mods
+    assert "jepsen_tpu_torch.lin.supervise" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
