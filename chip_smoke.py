@@ -213,11 +213,35 @@ raises on a failure:
     watchdog trip, fault or quarantine skip and logs the phase's
     supervised dispatches and their hand-off seconds (the watchdog's
     overhead); the run's quarantine ledger is a fresh temporary file.
+25. the streaming checker (``[stream-*]``; no new kernel: its increments
+    run the sparse engine's kernels through the incremental entry):
+    ``[stream-clean]`` the JAX stream smoke's soak shape (a CAS register
+    at concurrency 8 with up to 8 crashes, cut to 16,000 ops) through
+    ``StreamChecker`` 2,000 events an append, a line an increment
+    (settled rows, settle, paint and device-check seconds, band,
+    frontier), valid with no degrade and the one-shot verdict, its
+    late/early settle walls under 1.8; ``[stream-abort]`` the corrupted
+    40,000-op crash-free twin, latched within one increment of the
+    offending completion at the one-shot dead row and op, with ops left
+    unfed; ``[stream-paint]`` every settle painted on the card against
+    numpy's, both the one-shot pack bit for bit, and the two paints'
+    times at settles of about 44 to 5,800 rows (the measurement behind
+    ``pack_dev.STREAM_MIN_ROWS``); ``[stream-resume]`` a checkpointed
+    session dropped after half its appends and resumed at its row by a
+    fresh one, foreign events rejected; ``[stream-live]`` a
+    ``LiveChecker`` fed op by op from a producer thread, latched; and
+    ``[stream-wedge]`` a wedge injected at ``stream-incr`` degrading to
+    the post-hoc check on the card, which a device analyzer must decide.
+    ``[stream-launches]`` gives each kernel's launches by band over the
+    streams (the band the sparse engine reports for each increment, the
+    counts set to 0 just before it and read just after), which must launch
+    ``compact_keys``, ``fixpoint`` and ``dedup_keys_dom``; the kernels
+    line carries them as ``stream_launches``. Under 120 s.
 
 ``python3 chip_smoke.py --bands`` runs the build and phase 21 alone,
 printing its kernels' entries and the card, and no contract line;
-``--pack`` the build and phase 22 alone, ``--txn`` phase 23 and
-``--supervise`` phase 24.
+``--pack`` the build and phase 22 alone, ``--txn`` phase 23,
+``--supervise`` phase 24 and ``--stream`` phase 25.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -4344,14 +4368,473 @@ def supervise_phases(dev, smi: str) -> dict:
     return out
 
 
+# --- the streaming checker (phase 25) -----------------------------------------
+# The JAX package's stream smoke's soak shape: a CAS register at concurrency
+# 8 with up to 8 crashed ops (40,000 ops there, cut to 16,000 here to hold
+# the phase's 120 s: at 40,000 the stream's increments took 67.2 s on the
+# H100, at 24,000 51.2 s), and its crash-free corrupted twin at the full
+# 40,000 ops, fed 2,000 events an append (about 730 settled rows a settle).
+
+STREAM_CLEAN = dict(n_ops=16_000, concurrency=8, seed=7, crash_prob=0.005,
+                    max_crashes=8)
+STREAM_BAD = dict(n_ops=40_000, concurrency=8, seed=7)
+STREAM_BAD_SEED = 3
+STREAM_APPEND = 2_000
+# The resume leg's history (the clean shape, cut in length) and the
+# foreign events its checkpoint must reject.
+STREAM_RESUME = dict(STREAM_CLEAN, n_ops=4_000)
+STREAM_FOREIGN = dict(n_ops=1_000, concurrency=8, seed=8)
+# Settle sizes of the paint measurement behind pack_dev.STREAM_MIN_ROWS,
+# and the settles timed at each.
+STREAM_PAINT_ROWS = tuple(1 << k for k in range(6, 14))
+STREAM_PAINT_SETTLES = 12
+# The live producer offers ops in blocks, each once the checker thread
+# has taken the last; the thread takes what is queued, so its session
+# waits for 1,024 settled rows an increment (at the default 256 the live
+# leg ran about 100 increments, 23.4 s).
+STREAM_LIVE_BLOCK = 1_000
+STREAM_LIVE_MIN_ROWS = 1_024
+# The JAX stream smoke's gate on late over early settle walls.
+STREAM_RATIO_MAX = 1.8
+STREAM_PHASE_S = 120
+# The kernels each band of the stream path routes to.
+STREAM_ROUTES = {"compact": ("fixpoint", "compact_keys"),
+                 "crash-dom": ("dedup_keys_dom", "compact_keys"),
+                 "pair-compact": ("fixpoint_pair", "compact_keys2"),
+                 "pair-crash-dom": ("dedup_keys2_dom", "compact_keys2"),
+                 "generic": ("dedup_keys", "compact_keys")}
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch counter (each wrapper adds one where it
+    launches its kernel)."""
+    from jepsen_tpu_torch.lin import dense_cuda, psort, psort_fused
+    from jepsen_tpu_torch.txn import device as txn_device
+
+    return {"dense_chunk": dense_cuda.LAUNCHES,
+            "dense_chunk_batch": dense_cuda.BATCH_LAUNCHES,
+            **psort.LAUNCHES, **psort_fused.LAUNCHES,
+            "txn_scc": txn_device.LAUNCHES}
+
+
+def reset_kernel_counts() -> None:
+    """Every kernel's launch counter set to 0."""
+    from jepsen_tpu_torch.lin import dense_cuda
+    from jepsen_tpu_torch.txn import device as txn_device
+
+    reset_launches()
+    dense_cuda.LAUNCHES = dense_cuda.BATCH_LAUNCHES = 0
+    txn_device.LAUNCHES = 0
+
+
+def add_counts(acc: dict) -> None:
+    for k, v in kernel_counts().items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def band_launches(sc, bands: dict) -> list:
+    """Files each increment of session ``sc`` under the band the sparse
+    engine reports for it (its result's ``band``): every launch count is
+    set to 0 just before the increment and read just after, into
+    ``bands[band]``. Returns the list of the increments' bands, in
+    order."""
+    inc, commit = sc._increment, sc.commit_increment
+    order: list = []
+    last: list = []
+
+    def commit_spy(r, **kw):
+        last.append(r.get("band", "-"))
+        return commit(r, **kw)
+
+    def increment_spy():
+        last.clear()
+        reset_kernel_counts()
+        inc()
+        band = last[0] if last else "-"
+        add_counts(bands.setdefault(band, {}))
+        order.append(band)
+
+    sc._increment, sc.commit_increment = increment_spy, commit_spy
+    return order
+
+
+def brief(r: dict) -> dict:
+    """A result without its configs and final paths, for a message."""
+    return {k: v for k, v in r.items() if k not in ("configs",
+                                                     "final-paths")}
+
+
+def stream_chunks(h) -> list:
+    return [h[i:i + STREAM_APPEND] for i in range(0, len(h), STREAM_APPEND)]
+
+
+def one_shot(dev, model, h) -> tuple:
+    from jepsen_tpu_torch import checker
+
+    t0 = time.perf_counter()
+    r = checker.linearizable(algorithm="gpu", device=dev).check(None, model,
+                                                                h)
+    return r, time.perf_counter() - t0
+
+
+def stream_clean(dev, model, h, one, t_one: float, bands: dict) -> dict:
+    """[stream-clean]: the soak history through ``StreamChecker``, a line
+    an increment; valid with no degrade, the one-shot verdict, every
+    routed kernel launched, the settle walls flat."""
+    from jepsen_tpu_torch.lin import prepare
+    from jepsen_tpu_torch.stream import StreamChecker
+
+    sc = StreamChecker(model, device=dev)
+    seen = band_launches(sc, bands)
+    st, ps = prepare._pack_stats, sc.packer.paint_stats
+    walls = []
+    max_lag = 0
+
+    def step(fn, tag):
+        nonlocal max_lag
+        b = (st["incr_s"], ps["dev_paint_s"], ps["host_paint_s"],
+             sc.stats["increment_s"], sc.stats["increments"],
+             sc.stats["rows_checked"], len(seen))
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        settle = st["incr_s"] - b[0]
+        walls.append(settle)
+        incs = sc.stats["increments"] - b[4]
+        max_lag = max(max_lag, sc.stats["lag_rows"])
+        band = "/".join(dict.fromkeys(seen[b[6]:])) or "-"
+        log(f"[stream-clean] {tag}: rows {sc.stats['rows_checked'] - b[5]} "
+            f"(settled {sc.packer.R}) settle {settle:.4f}s paint card "
+            f"{ps['dev_paint_s'] - b[1]:.4f}s numpy "
+            f"{ps['host_paint_s'] - b[2]:.4f}s device check "
+            f"{sc.stats['increment_s'] - b[3]:.4f}s increments {incs} band "
+            f"{band} frontier {sc.stats.get('frontier')} append {wall:.4f}s")
+        return out
+
+    t0 = time.perf_counter()
+    for j, c in enumerate(stream_chunks(h)):
+        step(lambda c=c: sc.append(c), f"append {j}")
+    r = step(sc.finalize, "finalize")
+    t_stream = time.perf_counter() - t0
+    s = r["stream"]
+    q = len(walls) // 4
+    early = sum(walls[q:2 * q]) / q
+    late = sum(walls[-q - 1:-1]) / q
+    ratio = late / early
+    log(f"[stream-clean] ops={len(h) // 2} verdict={r['valid?']} analyzer="
+        f"{r.get('analyzer')} final-frontier-size="
+        f"{r.get('final-frontier-size')} increments={s['increments']} "
+        f"rows={s['rows_checked']} max lag {max_lag} rows, final lag "
+        f"{s['lag_rows']}; stream {t_stream:.3f}s, increments "
+        f"{s['increment_s']:.3f}s, settles {sum(walls):.3f}s, paints card "
+        f"{ps['dev_paint_s']:.3f}s ({ps['dev_paints']}) numpy "
+        f"{ps['host_paint_s']:.3f}s ({ps['host_paints']}); one-shot "
+        f"checker.linearizable(algorithm='gpu') {t_one:.3f}s "
+        f"({one.get('analyzer')}); late/early settle {late * 1e3:.3f} / "
+        f"{early * 1e3:.3f} ms = {ratio:.3f} (gate {STREAM_RATIO_MAX})")
+    if r["valid?"] is not True or one["valid?"] is not True \
+            or s.get("degraded") or s["rows_checked"] != s["rows_settled"]:
+        raise AssertionError(f"[stream-clean] {brief(r)} (one-shot "
+                             f"{brief(one)})")
+    if ratio >= STREAM_RATIO_MAX:
+        raise AssertionError(f"[stream-clean] late/early settle {ratio:.3f}")
+    return {"increments": s["increments"], "increment_s": s["increment_s"],
+            "stream_s": t_stream, "one_shot_s": t_one, "ratio": ratio,
+            "paint": dict(ps), "max_lag": max_lag}
+
+
+def stream_abort(dev, model, bad, good, one_bad, bands: dict) -> dict:
+    """[stream-abort]: the corrupted twin aborts within one increment of
+    the offending completion, at the one-shot dead row and op."""
+    from jepsen_tpu_torch.stream import StreamChecker
+
+    bad_at = next(i for i, (a, b) in enumerate(zip(good, bad))
+                  if a.value != b.value or a.type != b.type)
+    latched = []
+    sc = StreamChecker(model, device=dev,
+                       on_abort=lambda v: latched.append(time.perf_counter()))
+    band_launches(sc, bands)
+    fed, t_hold = None, None
+    for j, c in enumerate(stream_chunks(bad)):
+        i = j * STREAM_APPEND
+        if i <= bad_at < i + STREAM_APPEND:
+            t_hold = time.perf_counter()
+        sc.append(c)
+        if sc.aborted:
+            fed = i + len(c)
+            break
+    r = sc.finalize()
+    lat = latched[0] - t_hold if latched and t_hold else None
+    log(f"[stream-abort] offending completion at event {bad_at}; latched "
+        f"after {fed} events fed, {len(bad) - (fed or 0)} unfed, "
+        f"{lat if lat is None else round(lat, 4)}s from the append holding "
+        f"it; dead-row {r.get('dead-row')} op {r.get('op')} (one-shot "
+        f"{one_bad.get('dead-row')} {one_bad.get('op')}, "
+        f"{one_bad.get('analyzer')}); increments {r['stream']['increments']}")
+    if fed is None or fed - bad_at > 2 * STREAM_APPEND or fed >= len(bad) \
+            or r["valid?"] is not False or one_bad["valid?"] is not False \
+            or (r.get("dead-row"), r.get("op")) != \
+            (one_bad.get("dead-row"), one_bad.get("op")):
+        raise AssertionError(f"[stream-abort] fed {fed} bad_at {bad_at}: "
+                             f"{brief(r)} (one-shot {brief(one_bad)})")
+    return {"bad_at": bad_at, "fed": fed, "unfed": len(bad) - fed,
+            "latency_s": lat, "dead_row": r.get("dead-row")}
+
+
+def stream_paint(dev, model, h, smi: str) -> dict:
+    """[stream-paint]: every settle painted on the card against numpy's,
+    both the one-shot pack bit for bit; then the card's paint time
+    against numpy's at each settle size of STREAM_PAINT_ROWS."""
+    import statistics
+
+    from jepsen_tpu_torch.lin import pack_dev, prepare
+    from jepsen_tpu_torch.stream import IncrementalPacker
+
+    def packer(min_rows, step, n_events=None):
+        pk = IncrementalPacker(model, device=dev, paint_min_rows=min_rows)
+        per = []
+        ev = h if n_events is None else h[:n_events]
+        for i in range(0, len(ev), step):
+            pk.feed_many(ev[i:i + step])
+            b = dict(pk.paint_stats)
+            n = pk.settle()
+            if n:
+                where = "dev" if pk.paint_stats["dev_paints"] > \
+                    b["dev_paints"] else "host"
+                per.append((n, pk.paint_stats[f"{where}_paint_s"]
+                            - b[f"{where}_paint_s"]))
+        if n_events is None:
+            pk.settle(final=True)
+        return pk, per
+
+    pack_dev.reset_dev_stats()
+    card, _ = packer(0, STREAM_APPEND)
+    host, _ = packer(1 << 30, STREAM_APPEND)
+    if card.paint_stats["host_paints"] or host.paint_stats["dev_paints"] \
+            or pack_dev.dev_stats()["dev_packs"] != \
+            card.paint_stats["dev_paints"]:
+        raise AssertionError(f"[stream-paint] routes: {card.paint_stats} "
+                             f"{host.paint_stats} {pack_dev.dev_stats()}")
+    one = prepare.prepare(model, h)
+    same_pack(card.packed(), host.packed(), "[stream-paint] card/numpy")
+    same_pack(card.packed(), one, "[stream-paint] card/one-shot")
+    if card.prefix_fingerprint(card.R) != host.prefix_fingerprint(host.R):
+        raise AssertionError("[stream-paint] fingerprints differ")
+    log(f"[stream-paint] {card.paint_stats['dev_paints']} settles painted "
+        f"on the card and {host.paint_stats['host_paints']} with numpy: "
+        f"every table, pure, pred and packed() bit-identical to each other "
+        f"and to prepare.prepare (R={one.R}, window={one.window})")
+    sizes = {}
+    for rows in STREAM_PAINT_ROWS:
+        n_ev = min(len(h), 2 * rows * STREAM_PAINT_SETTLES)
+        ms = {}
+        for where, min_rows in (("card", 0), ("numpy", 1 << 30)):
+            _, per = packer(min_rows, 2 * rows, n_ev)
+            ms[where] = [t * 1e3 for _, t in per[1:]]
+            got = [n for n, _ in per[1:]]
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        sizes[rows] = {**med, "settled_rows": statistics.median(got),
+                       "settles": len(got)}
+        log(f"[stream-paint] appends of {2 * rows} events, settles of "
+            f"{statistics.median(got):.0f} rows (median of {len(got)}): "
+            f"card {med['card']:.4f} ms, numpy {med['numpy']:.4f} ms, "
+            f"card/numpy {med['card'] / med['numpy']:.3f} | {smi}")
+    wins = [m["settled_rows"] for m in sizes.values()
+            if m["card"] <= m["numpy"]]
+    log(f"[stream-paint] the card's paint at or below numpy's at settles "
+        f"of {wins or 'no measured size'} rows; pack_dev.STREAM_MIN_ROWS = "
+        f"{pack_dev.STREAM_MIN_ROWS}")
+    return {"sizes": sizes, "card_wins": wins}
+
+
+def stream_resume(dev, model, tmp: Path, h, one, hf, one_f) -> dict:
+    """[stream-resume]: a checkpointed session over ``h`` dropped after
+    half its appends; a fresh one re-fed the same events resumes at that
+    row with the one-shot verdict ``one``; the foreign events ``hf``
+    reject the checkpoint and are checked from row 0 (verdict
+    ``one_f``)."""
+    import shutil
+
+    from jepsen_tpu_torch.stream import StreamChecker
+
+    chunks = stream_chunks(h)
+    ck = str(tmp / "stream.npz")
+    sc1 = StreamChecker(model, device=dev, checkpoint=ck)
+    for c in chunks[:len(chunks) // 2]:
+        sc1.append(c)
+    row = sc1._row
+    if not row or not os.path.exists(ck):
+        raise AssertionError(f"[stream-resume] no checkpoint at row {row}")
+    shutil.copy(ck, tmp / "stream-kept.npz")
+    del sc1
+    t0 = time.perf_counter()
+    sc2 = StreamChecker(model, device=dev, checkpoint=ck)
+    for c in chunks:
+        sc2.append(c)
+    r = sc2.finalize()
+    t_resume = time.perf_counter() - t0
+    sc3 = StreamChecker(model, device=dev,
+                        checkpoint=str(tmp / "stream-kept.npz"))
+    for c in stream_chunks(hf):
+        sc3.append(c)
+    rf = sc3.finalize()
+    log(f"[stream-resume] killed at row {row} of {len(h) // 2} ops; the "
+        f"re-fed session resumed_from_row="
+        f"{r['stream'].get('resumed_from_row')} verdict {r['valid?']} "
+        f"(one-shot {one['valid?']}) increments {r['stream']['increments']} "
+        f"in {t_resume:.3f}s; foreign events: resumed_from_row="
+        f"{rf['stream'].get('resumed_from_row')} rows checked "
+        f"{rf['stream']['rows_checked']} of {rf['stream']['rows_settled']} "
+        f"verdict {rf['valid?']} (one-shot {one_f['valid?']})")
+    if r["stream"].get("resumed_from_row") != row \
+            or r["valid?"] != one["valid?"] \
+            or "resumed_from_row" in rf["stream"] \
+            or rf["stream"]["rows_checked"] != rf["stream"]["rows_settled"] \
+            or rf["valid?"] != one_f["valid?"]:
+        raise AssertionError(f"[stream-resume] {r['stream']} {rf['stream']}")
+    return {"row": row, "resume_s": t_resume}
+
+
+def stream_live(dev, model, bad, one_bad) -> dict:
+    """[stream-live]: a LiveChecker fed op by op from a producer thread on
+    the corrupted twin latches ``should_abort()``; ``finish()`` returns
+    the abort verdict."""
+    import threading
+
+    from jepsen_tpu_torch.stream import LiveChecker
+
+    lc = LiveChecker(model, device=dev, min_rows=STREAM_LIVE_MIN_ROWS)
+    offered = [0]
+
+    def producer():
+        for op in bad:
+            if lc.should_abort():
+                return
+            lc.offer(op)
+            offered[0] += 1
+            if offered[0] % STREAM_LIVE_BLOCK == 0:
+                while lc._q and not lc.should_abort():
+                    time.sleep(0.0005)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=producer, name="stream-live-producer")
+    th.start()
+    th.join()
+    latched = lc.should_abort()
+    r = lc.finish()
+    took = time.perf_counter() - t0
+    log(f"[stream-live] producer offered {offered[0]} of {len(bad)} ops; "
+        f"should_abort {latched}; finish(): {r['valid?']} dead-row "
+        f"{r.get('dead-row')} op {r.get('op')} in {took:.3f}s")
+    if not latched or offered[0] >= len(bad) or r["valid?"] is not False \
+            or (r.get("dead-row"), r.get("op")) != \
+            (one_bad.get("dead-row"), one_bad.get("op")):
+        raise AssertionError(f"[stream-live] {brief(r)}")
+    return {"offered": offered[0], "s": took}
+
+
+def stream_wedge(dev, model, bad, one_bad) -> dict:
+    """[stream-wedge]: a wedge injected at ``stream-incr`` degrades the
+    session to one post-hoc check on the card, the device search alone:
+    the one-shot verdict, op and analyzer, and ``stream-fallback`` set."""
+    from jepsen_tpu_torch.lin import supervise
+    from jepsen_tpu_torch.stream import StreamChecker
+
+    supervise.reset_injections()
+    supervise.inject_wedge("stream-incr", 2, deadline_s=0.05)
+    try:
+        t0 = time.perf_counter()
+        sc = StreamChecker(model, device=dev)
+        for c in stream_chunks(bad):
+            sc.append(c)
+        r = sc.finalize()
+        took = time.perf_counter() - t0
+    finally:
+        supervise.reset_injections()
+    log(f"[stream-wedge] degraded: {r['stream'].get('degraded')!r}; "
+        f"stream-fallback set: {bool(r.get('stream-fallback'))}; verdict "
+        f"{r['valid?']} op {r.get('op')} (one-shot {one_bad.get('op')}); "
+        f"decided by analyzer {r.get('analyzer')}; trips "
+        f"{r['stream'].get('watchdog_trips')}; {took:.3f}s")
+    if not str(r["stream"].get("degraded", "")).startswith(
+            "increment wedge") or not r.get("stream-fallback") \
+            or r["valid?"] is not False or r.get("op") != one_bad.get("op") \
+            or not str(r.get("analyzer")).startswith("gpu-") \
+            or r.get("analyzer") != one_bad.get("analyzer"):
+        raise AssertionError(f"[stream-wedge] {brief(r)}")
+    return {"analyzer": r.get("analyzer"), "s": took}
+
+
+def stream_phases(dev, smi: str) -> dict:
+    """Phase 25: the streaming checker on the card (see the module
+    docstring). Returns its measurements, the launches of every kernel
+    over its streams among them."""
+    from jepsen_tpu_torch import models as m
+    from jepsen_tpu_torch.lin import synth
+
+    t_phase = time.perf_counter()
+    tmp = SCRATCH / "stream"
+    tmp.mkdir()
+    model = m.cas_register()
+    out = {"card": smi}
+    bands: dict = {}
+    with supervised_clean("phase 25"):
+        h = synth.generate_register_history(**STREAM_CLEAN)
+        good = synth.generate_register_history(**STREAM_BAD)
+        bad = synth.corrupt_history(good, seed=STREAM_BAD_SEED)
+        hr = synth.generate_register_history(**STREAM_RESUME)
+        hf = synth.generate_register_history(**STREAM_FOREIGN)
+        # The one-shot checks' launches are not the streams'.
+        one, t_one = one_shot(dev, model, h)
+        one_bad, _ = one_shot(dev, model, bad)
+        one_r, _ = one_shot(dev, model, hr)
+        one_f, _ = one_shot(dev, model, hf)
+        out["clean"] = stream_clean(dev, model, h, one, t_one, bands)
+        out["abort"] = stream_abort(dev, model, bad, good, one_bad, bands)
+        out["paint"] = stream_paint(dev, model, h, smi)
+        reset_kernel_counts()
+        out["resume"] = stream_resume(dev, model, tmp, hr, one_r, hf,
+                                      one_f)
+        out["live"] = stream_live(dev, model, bad, one_bad)
+        out["later_launches"] = kernel_counts()
+    out["wedge"] = stream_wedge(dev, model, bad, one_bad)
+    total = {}
+    for d in (*bands.values(), out["later_launches"]):
+        for k, v in d.items():
+            total[k] = total.get(k, 0) + v
+    bands.pop("-", None)
+    for band, d in sorted(bands.items()):
+        idle = [k for k in STREAM_ROUTES.get(band, ()) if not d.get(k)]
+        log(f"[stream-launches] band {band}: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(d.items())))
+        if idle:
+            raise AssertionError(f"[stream-launches] band {band} never "
+                                 f"launched {idle}")
+    log("[stream-launches] every stream of phase 25 (clean, abort, resume, "
+        "live): " + ", ".join(f"{k} {v}" for k, v in sorted(total.items())))
+    missing = [k for k in ("compact_keys", "fixpoint", "dedup_keys_dom")
+               if not total.get(k)]
+    if missing:
+        raise AssertionError(f"[stream-launches] never launched {missing}")
+    out["bands"] = bands
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[stream] phase 25 in {out['phase_s']:.1f}s | {smi}")
+    if out["phase_s"] > STREAM_PHASE_S:
+        raise AssertionError(f"[stream] phase 25 took {out['phase_s']:.1f}s "
+                             f"(> {STREAM_PHASE_S} s)")
+    return out
+
+
 def main(device: str = "cuda", bands_only: bool = False,
          pack_only: bool = False, txn_only: bool = False,
-         supervise_only: bool = False) -> int:
+         supervise_only: bool = False, stream_only: bool = False) -> int:
     """Run every phase on ``device`` ("cpu" only rehearses the control
     flow with the plain versions in place of the kernels), or with
     ``bands_only`` the build and phase 21 alone, with ``pack_only`` the
     build and phase 22 alone, with ``txn_only`` the build and phase 23
-    alone, or with ``supervise_only`` the build and phase 24 alone."""
+    alone, with ``supervise_only`` the build and phase 24 alone, or with
+    ``stream_only`` the build and phase 25 alone."""
     import tempfile
 
     import torch
@@ -4369,7 +4852,7 @@ def main(device: str = "cuda", bands_only: bool = False,
                                                        "quarantine.json")
     try:
         return _main(device, bands_only, pack_only, txn_only,
-                     supervise_only)
+                     supervise_only, stream_only)
     finally:
         import shutil
 
@@ -4377,7 +4860,7 @@ def main(device: str = "cuda", bands_only: bool = False,
 
 
 def _main(device: str, bands_only: bool, pack_only: bool, txn_only: bool,
-          supervise_only: bool) -> int:
+          supervise_only: bool, stream_only: bool) -> int:
     import numpy as np
     import torch
 
@@ -4420,6 +4903,11 @@ def _main(device: str, bands_only: bool, pack_only: bool, txn_only: bool,
         return 0
     if supervise_only:
         print(json.dumps({"supervise": supervise_phases(dev, smi)}),
+              flush=True)
+        print(smi, flush=True)
+        return 0
+    if stream_only:
+        print(json.dumps({"stream": stream_phases(dev, smi)}, default=str),
               flush=True)
         print(smi, flush=True)
         return 0
@@ -4622,6 +5110,9 @@ def _main(device: str, bands_only: bool, pack_only: bool, txn_only: bool,
     with supervised_clean("phase 23"):
         kernels.append(txn_phases(dev, smi))
     supervise_phases(dev, smi)
+    stream = stream_phases(dev, smi)
+    for k in kernels:
+        k["stream_launches"] = stream["launches"].get(k["name"], 0)
     return finish(kernels, smi, kind)
 
 
@@ -4639,10 +5130,11 @@ def finish(kernels, smi: str, kind: str) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--bands"], ["--pack"], ["--txn"],
-                            ["--supervise"]):
+                            ["--supervise"], ["--stream"]):
         sys.exit("usage: chip_smoke.py [--bands | --pack | --txn | "
-                 "--supervise]")
+                 "--supervise | --stream]")
     sys.exit(main(bands_only=sys.argv[1:] == ["--bands"],
                   pack_only=sys.argv[1:] == ["--pack"],
                   txn_only=sys.argv[1:] == ["--txn"],
-                  supervise_only=sys.argv[1:] == ["--supervise"]))
+                  supervise_only=sys.argv[1:] == ["--supervise"],
+                  stream_only=sys.argv[1:] == ["--stream"]))

@@ -10,8 +10,12 @@ counterexample replay, the ``linearizable`` checker and its lift to
 independent keys (:mod:`jepsen_tpu_torch.independent`). Beside it the
 transaction checker (:mod:`jepsen_tpu_torch.txn`, ``checker.txn_cycles``):
 Elle's dependency-graph cycle search over list-append histories, its SCC
-program one launch of a CUDA kernel (``csrc/txn_scc.cu``). It imports
-torch and numpy only.
+program one launch of a CUDA kernel (``csrc/txn_scc.cu``). And the
+streaming checker (:mod:`jepsen_tpu_torch.stream`): a history decided
+while it is recorded, in settled-row increments that carry the sparse
+engine's frontier, each settle's table paint on the card, and the live
+run's checker thread with its early abort. It imports torch and numpy
+only.
 
 Entry points take ``device=``. Without one they run on the card, and
 raise if there is none; pass ``device="cpu"`` to run the plain torch

@@ -900,6 +900,14 @@ class _Engine:
         # the CPU oracle.
         self.host_stats = _host_stats()
 
+    @property
+    def band(self) -> str:
+        """The band this engine searches in, as a result's ``band`` names
+        it: ``compact`` or ``crash-dom``, ``pair-`` before either on pair
+        keys."""
+        return ("pair-" if self.pair else "") \
+            + ("crash-dom" if self.crash_dom else "compact")
+
     def _init_band(self, pred_bit) -> None:
         """The compact band expands by mutator-compacted columns (M of
         them). Crashed ops put it in a crash-dom band: dominance dedups,
@@ -1231,6 +1239,8 @@ class _GenericEngine(_Engine):
     kernel outside the compact band. Each closure pass steps every slot
     of the window (:func:`_closure_pass_keys`, no groups, no fused
     fixpoint); crashed ops need no dominance and run the ordinary loop."""
+
+    band = "generic"
 
     def _init_band(self, pred_bit) -> None:
         self.pred_h = pred_bit[..., 0]
@@ -1748,7 +1758,9 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
 
     Returns the reference's result shape: ``valid?``, ``dead-row``,
     ``op``, ``final-frontier-size``, ``max-cap``, ``overflow`` (with an
-    unknown: ``capacity``, ``budget``, ``wedge`` or ``fault``)."""
+    unknown: ``capacity``, ``budget``, ``wedge`` or ``fault``), and
+    ``band``, the band the search ran in (``compact``, ``crash-dom``,
+    their ``pair-`` forms, ``generic`` or ``multiword``)."""
     device = resolve_device(device)
     err = band_error(p)
     if err is not None:
@@ -1855,6 +1867,7 @@ def check_packed(p: PackedHistory, cap_schedule=None, chunk: int = CHUNK,
                              f"capacity {cap_schedule[-1]}"}
 
     def with_stats(out: dict) -> dict:
+        out["band"] = eng.band
         if hs["episodes"] or any(hs.get(k) for k in (
                 "watchdog_trips", "faults", "quarantine_skips", "cpu_rows")):
             out["host-stats"] = util.round_stats(hs)
@@ -2070,6 +2083,7 @@ class _MWEngine:
     (u32 words) and ``hi`` = state int64[1, cap, S], zero past the
     count."""
 
+    band = "multiword"
     crash_dom = False
     max_tier = None
 

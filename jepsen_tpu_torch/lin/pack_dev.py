@@ -39,10 +39,18 @@ shape, a wedge or a fault is counted in :func:`dev_stats`. On the card
 it raises (``supervise.Quarantined``, ``WedgedDispatch`` or the fault):
 the card's work does not move to the host. On the CPU the wave's lanes
 pack on the host instead, the bit-identical pack, as in the JAX package.
-No caller of the port's main path packs here yet: on the card it
+The one-shot checkers do not call :func:`materialize`: on the card it
 does not beat the host pack (``chip_smoke.py`` phase 22). The service's
-admission (as in the JAX package's daemon) and the stream are to call
-it.
+admission (as in the JAX package's daemon) is to call it.
+
+:func:`paint_tables_dev` is the stream packer's caller here
+(:mod:`jepsen_tpu_torch.stream.incr`): a settle of at least
+``paint_min_rows`` new rows (default :data:`STREAM_MIN_ROWS`) paints its
+grid, gathers and crashed table on the stream's device with one torch
+program (:func:`_paint_program`), supervised at site ``pack-dev``
+(shape key ``paint-<kernel>``, band ``stream``), with the same routing
+on a non-ok outcome as a wave: the numpy paint on the CPU, a raise on
+the card.
 """
 
 from __future__ import annotations
@@ -64,6 +72,15 @@ from jepsen_tpu_torch.models.kernels import F_IDS, NIL
 # In materialize_batch, a same-bucket wave of fewer eligible histories
 # packs on the host (the JAX package's default).
 MIN_BATCH_K = 4
+
+# The stream packer paints a settle of fewer new rows with numpy, and one
+# of at least this many on its device (the packer's ``paint_min_rows``).
+# Set from chip_smoke.py's [stream-paint] measurement on the H100, where
+# both paints cost host time (the card's is a dozen launches and two
+# copies): on one host the card's matched numpy's from settles of 1,495
+# rows (0.97x its time), on another only at 5,797 (0.87x; 1.13x at
+# 2,992); PERF.md.
+STREAM_MIN_ROWS = 4096
 
 # Device-pack accounting: dispatches, lanes and wall seconds on the
 # device; lanes packed on the host, and of those the eligible ones that a
@@ -531,3 +548,98 @@ def _materialize_wave(wave: list, dev: torch.device) -> list:
     st["prepare_calls"] += len(wave)
     st["mode"] = "dev"
     return [_assemble_dev(p, lane) for p, lane in zip(wave, lanes)]
+
+
+# --- the streaming paint (stream/incr.py's settled-row increments) ----------
+
+
+def _paint_program(W: int, n_new: int, p_slot, r0, r1, ids1, opf, opv,
+                   op_crash, n1: int):
+    """The stream settle's grid half on one device: the interval paint of
+    the carried painters (op id + 1 added at row ``r0``, taken away at
+    ``r1``, a cumsum along the rows) and the snapshot gathers. The settle
+    computed painters, slots and intervals on the host with its carried
+    walk state; the O(rows x W) tail runs here. A painter outside the
+    window paints into column ``W``, which is dropped; an inactive cell
+    gathers the pad op at ``n1`` (f 0, value NIL, not crashed), as the
+    numpy paint's ``-1`` index reads the sentinel slot. ``op_crash`` is a
+    bool column the host computed (the stream's never-returns sentinel
+    is an int64 the int32 tables never hold). Returns (grid, slot_f,
+    slot_v, crashed); ``active`` and ``slot_op`` are ``grid != 0`` and
+    ``grid - 1``."""
+    col = torch.where((p_slot < 0) | (p_slot >= W), W, p_slot)
+    occ = torch.zeros((W + 1) * (n_new + 1), dtype=torch.int32,
+                      device=p_slot.device)
+    occ.scatter_add_(0, col * (n_new + 1) + r0, ids1)
+    occ.scatter_add_(0, col * (n_new + 1) + r1, -ids1)
+    occ = torch.cumsum(occ.view(W + 1, n_new + 1), 1, dtype=torch.int32)
+    grid = occ[:W, :n_new].t()
+    active = grid != 0
+    gidx = torch.where(active, grid.long() - 1, n1)
+    return grid, opf[gidx], opv[gidx], op_crash[gidx] & active
+
+
+def paint_tables_dev(p_slot, r0, r1, ids1, op_f, op_v, op_crashed,
+                     n1: int, n_new: int, W: int, *, kernel: str,
+                     device=None, stats: dict | None = None):
+    """One stream settle's paint on ``device`` (the card when None;
+    raises without one), supervised at site ``pack-dev``. Returns the
+    (grid, active, slot_f, slot_v, slot_op, crashed) numpy tables of the
+    ``n_new`` new rows, the numpy paint's bit for bit. On a quarantined
+    shape, a wedge or a fault (counted in :func:`dev_stats`) it returns
+    None on the CPU, and the caller paints with numpy, as in the JAX
+    package; on the card it raises (``supervise.Quarantined``,
+    ``WedgedDispatch`` or the fault): the card's work does not move to the
+    host."""
+    dev = resolve_device(device)
+    key = supervise.shape_key("pack-dev", cap=_pow2(len(p_slot), 8),
+                              window=W, kernel=f"paint-{kernel}",
+                              rows=_pow2(n_new, 8), band="stream")
+    if supervise.quarantined(key) is not None:
+        supervise.note_skip(stats)
+        _dev_stats["quarantine_skips"] += 1
+        if not supervise.host_rungs(dev):
+            raise supervise.Quarantined(
+                f"pack-dev shape {key} is quarantined "
+                f"({supervise.ledger_path()})")
+        _dev_stats["host_fallbacks"] += 1
+        return None
+    vw = op_v.shape[1]
+    # The op tables with the pad op at n1 (the numpy paint's sentinel).
+    opf = np.zeros(n1 + 1, np.int32)
+    opf[:n1] = op_f[:n1]
+    opv = np.full((n1 + 1, vw), int(NIL), np.int32)
+    opv[:n1] = op_v[:n1]
+    opc = np.zeros(n1 + 1, bool)
+    opc[:n1] = op_crashed[:n1]
+    host = (np.asarray(p_slot, np.int64), np.asarray(r0, np.int64),
+            np.asarray(r1, np.int64), np.asarray(ids1, np.int32),
+            opf, opv, opc)
+
+    def thunk():
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        grid, slot_f, slot_v, crashed = _paint_program(W, n_new, *args,
+                                                       n1=n1)
+        # One copy back: the four tables side by side as int32 columns.
+        out = torch.cat([grid, slot_f, slot_v.reshape(n_new, W * vw),
+                         crashed.to(torch.int32)], 1).cpu().numpy()
+        return out
+
+    t0 = time.perf_counter()
+    outcome, res = supervise.run_guarded("pack-dev", key, thunk,
+                                         stats=stats)
+    if outcome != "ok":
+        _dev_stats["wedges" if outcome == "wedge" else "faults"] += 1
+        if not supervise.host_rungs(dev):
+            raise res
+        _dev_stats["host_fallbacks"] += 1
+        return None
+    _dev_stats["dev_packs"] += 1
+    _dev_stats["dev_lanes"] += 1
+    _dev_stats["dev_pack_s"] += time.perf_counter() - t0
+    grid = np.ascontiguousarray(res[:, :W])
+    slot_f = np.ascontiguousarray(res[:, W:2 * W])
+    slot_v = np.ascontiguousarray(
+        res[:, 2 * W:(2 + vw) * W].reshape(n_new, W, vw))
+    crashed = res[:, (2 + vw) * W:] != 0
+    return grid, grid != 0, slot_f, slot_v, grid - 1, crashed

@@ -66,11 +66,13 @@ def fast_pack_enabled() -> bool:
     return os.environ.get("JEPSEN_TPU_FAST_PACK", "") != "0"
 
 
-# The pack meter: cumulative wall seconds and calls this process, and the
-# walk the last pack took ("vec", "native", "py"; "dev" after the device
-# packer).
+# The pack meter: cumulative wall seconds and calls this process (one-shot
+# packs, reduction tables, and the stream packer's settles,
+# ``jepsen_tpu_torch.stream.incr``), and the walk the last pack took
+# ("vec", "native", "py"; "dev" after the device packer).
 _pack_stats = {"prepare_s": 0.0, "prepare_calls": 0,
-               "reduction_s": 0.0, "reduction_calls": 0, "mode": ""}
+               "reduction_s": 0.0, "reduction_calls": 0,
+               "incr_s": 0.0, "incr_calls": 0, "mode": ""}
 
 
 def pack_stats() -> dict:

@@ -12,8 +12,10 @@ names, env knobs and defaults:
   wedges in a streak, records its shape; the host-row sites
   (``host-fixpoint``, ``host-pass``), ``txn-scc`` and ``pack-dev`` route
   a quarantined shape straight to their next rung, in later processes
-  too. The base sites (``chunk``, ``spike``) have no other rung: their
-  entries are a record only.
+  too. The base sites (``chunk``, ``spike``) and the stream's increment
+  (``stream-incr``, :mod:`jepsen_tpu_torch.stream.session`, whose
+  non-ok outcome hands the session to one post-hoc check) have no other
+  rung: their entries are a record only.
 - :class:`Checkpointer` / :func:`load_checkpoint` — frontier
   checkpoint/resume at committed row boundaries, in the JAX package's
   format (``CKPT_VERSION``, the ``__meta__`` JSON, the same

@@ -26,6 +26,10 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "jepsen_tpu_torch.lin.dense_cuda" in mods
     assert "jepsen_tpu_torch.util" in mods
     assert "jepsen_tpu_torch.lin.supervise" in mods
+    for m in ("jepsen_tpu_torch.stream", "jepsen_tpu_torch.stream.incr",
+              "jepsen_tpu_torch.stream.session",
+              "jepsen_tpu_torch.stream.runner"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

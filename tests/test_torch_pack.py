@@ -260,6 +260,7 @@ def test_pack_meter_and_default_walk(monkeypatch):
     tprep.reset_pack_stats()
     assert tprep.pack_stats() == {"prepare_s": 0.0, "prepare_calls": 0,
                                   "reduction_s": 0.0, "reduction_calls": 0,
+                                  "incr_s": 0.0, "incr_calls": 0,
                                   "mode": ""}
 
 
